@@ -1,0 +1,43 @@
+"""Load parameters given as numpy arrays into the port.
+
+``params_from_numpy`` takes the JAX package's unboxed parameter pytree
+with every leaf converted to a numpy array (nested dicts, the same keys
+and shapes the port uses) and returns the port's parameters, so both
+packages compute the same model. It checks the tree against the
+structure and shapes ``init_params`` builds for ``cfg``. This module
+never imports jax: the caller produces the numpy tree.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                      device) -> Dict[str, Any]:
+    """numpy tree -> port params on ``device`` (``"cuda"`` or ``"cpu"``,
+    resolved as ``build_model`` resolves it), each leaf in the dtype the
+    port stores it in (``cfg.dtype``; float32 for RMS gammas)."""
+    device = resolve_device(device)
+    like = transformer.init_params(cfg, None, torch.device("meta"))
+    want = dict(tree_leaves(like))
+    got = dict(tree_leaves(tree))
+    if want.keys() != got.keys():
+        raise ValueError(f"parameter tree mismatch for {cfg.name}: missing "
+                         f"{sorted(want.keys() - got.keys())}, unexpected "
+                         f"{sorted(got.keys() - want.keys())}")
+    for path, ref in want.items():
+        if tuple(np.shape(got[path])) != tuple(ref.shape):
+            raise ValueError(f"{path}: shape {np.shape(got[path])}, "
+                             f"expected {tuple(ref.shape)}")
+    return tree_map(
+        lambda ref, arr: torch.from_numpy(np.array(arr, dtype=np.float32)
+                                          ).to(device=device, dtype=ref.dtype),
+        like, tree)

@@ -1,0 +1,11 @@
+"""The dense architectures the port serves (one module per arch).
+
+Importing this package registers every config with ``repro_torch.config``.
+Module names are sanitized arch ids, as in ``repro.configs``.
+"""
+from repro_torch.configs import (  # noqa: F401
+    gemma3_27b,
+    granite_20b,
+    qwen2_5_14b,
+    starcoder2_3b,
+)

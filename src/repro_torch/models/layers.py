@@ -1,0 +1,104 @@
+"""Shared building blocks: parameter init, RMS norm, rotary embeddings,
+embedding and unembedding.
+
+Parameters are nested dicts of tensors laid out like the reference's
+unboxed pytrees (``repro.models.layers``). Weight matrices, biases and
+embeddings are stored once in ``cfg.dtype``. The reference keeps float32
+masters and casts them to ``cfg.dtype`` at every use (``.astype(dt)``);
+casting once at init gives the same values without the per-use copy. RMS
+gammas stay float32, because the reference reads them in float32
+(``rms_norm`` upcasts ``gamma``, never downcasts it).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
+          dtype: torch.dtype, device: torch.device,
+          scale: Optional[float] = None, init: str = "normal") -> torch.Tensor:
+    """One parameter, initialised like ``repro.models.layers.param``:
+    ``scale=None`` means normal x 1/sqrt(fan_in), with fan_in the first
+    axis of a matrix; ``init="zeros"`` for biases and gammas. The draw is
+    float32 from ``gen``, then cast to ``dtype``."""
+    shape = tuple(shape)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if scale is None:
+        fan_in = shape[0] if len(shape) > 1 else shape[-1]
+        scale = 1.0 / math.sqrt(max(1, fan_in))
+    v = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (v * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """fp32 RMS norm scaled by ``1 + gamma`` (gamma stored zero-centred)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + gamma.float())).to(x.dtype)
+
+
+def init_rms(gen, d: int, device) -> Dict[str, torch.Tensor]:
+    return {"gamma": param(gen, (d,), dtype=torch.float32, device=device,
+                           init="zeros")}
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-split, not interleaved)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    ang = positions[..., None].float() * freqs                  # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                          # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embed(gen, vocab: int, d_model: int, tie: bool, *, dtype,
+               device) -> Dict[str, torch.Tensor]:
+    p = {"tok": param(gen, (vocab, d_model), dtype=dtype, device=device,
+                      scale=1.0)}
+    if not tie:
+        p["out"] = param(gen, (d_model, vocab), dtype=dtype, device=device)
+    return p
+
+
+def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor) -> torch.Tensor:
+    return params["tok"][tokens]
+
+
+def unembed(params: Dict[str, torch.Tensor], x: torch.Tensor,
+            tie: bool) -> torch.Tensor:
+    w = params["tok"].T if tie else params["out"]
+    return x @ w

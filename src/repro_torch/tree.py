@@ -1,0 +1,34 @@
+"""Nested-dict trees: the port's stand-in for JAX pytrees.
+
+Parameters and decode caches are nested ``dict``s whose leaves are tensors
+(or, for axis metadata, ints), laid out exactly like the reference's
+unboxed pytrees so the two packages can be compared leaf by leaf.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterator, Tuple
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over trees of identical dict structure."""
+    if isinstance(tree, dict):
+        for other in rest:
+            if not isinstance(other, dict) or other.keys() != tree.keys():
+                raise ValueError(f"tree structures differ: {sorted(tree)} vs "
+                                 f"{sorted(other) if isinstance(other, dict) else other!r}")
+        return {k: tree_map(fn, tree[k], *(o[k] for o in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs in key order; paths look like ``a/b/c``."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from tree_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def tree_index(tree: Dict, i: int) -> Dict:
+    """Leading-axis slice of every leaf: one layer of a stacked tree."""
+    return tree_map(lambda x: x[i], tree)

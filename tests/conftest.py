@@ -9,6 +9,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips itself without one (run "
+                   "on the card with -m gpu)")
+
+
 def pytest_addoption(parser):
     parser.addoption(
         "--update-goldens", action="store_true", default=False,

@@ -1,0 +1,46 @@
+"""The PyTorch port stands alone: every module of ``repro_torch`` and the
+chip smoke script import with ``jax`` and the JAX package ``repro``
+blocked, and importing them runs nothing (no build, no card needed)."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+PROBE = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None            # any import of them now fails
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    code = PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20      # every module was seen
+
+
+def test_no_kernel_is_built_at_import():
+    """Importing the kernel modules must not need nvcc: the build runs at
+    the first launch on a CUDA tensor."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import kernel  # noqa: F401
+    assert "decode_attention" not in build._LOADED
