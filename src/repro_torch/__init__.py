@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the ``repro`` serving path, for NVIDIA Hopper.
+"""PyTorch/CUDA port of ``repro`` for NVIDIA Hopper: the dense serving path,
+the full-sequence forward and the dense training path.
 
 The JAX package ``repro`` is the reference; this package keeps its module
 names so each counterpart is easy to find, and imports nothing from it.

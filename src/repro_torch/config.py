@@ -1,19 +1,23 @@
-"""Model configuration for the PyTorch port: the dense decoder's fields.
+"""Configuration for the PyTorch port: the dense decoder's fields and the
+training configuration.
 
-A copy of the part of ``repro.config`` that the dense serving path reads,
-with the same field names and defaults, so that a configuration means the
-same model in both packages. The port keeps its own copy because it never
-imports the JAX package.
+A copy of the part of ``repro.config`` that the dense serving and
+training paths read, with the same field names and defaults, so that a
+configuration means the same model in both packages. The port keeps its
+own copy because it never imports the JAX package.
 
-``attn_impl`` selects decode attention: ``"cuda"`` (the hand-written
-Hopper kernel, the default, since the port's entry points run on the card)
-or ``"torch"`` (the kernel's plain PyTorch version, which runs anywhere).
+``attn_impl`` selects attention: ``"cuda"`` (the hand-written Hopper
+kernels, decode and flash; the default, since the port's entry points run
+on the card) or ``"torch"`` (the plain PyTorch paths, which run anywhere:
+the decode kernel's plain version and the q-chunked full attention).
+The flash kernel has no backward, as the reference's Pallas kernel has
+none, so a model that is differentiated is built with ``"torch"``.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Callable, Dict, List
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -44,6 +48,8 @@ class ModelConfig:
     # --- numerics / implementation ------------------------------------------
     dtype: str = "bfloat16"
     attn_impl: str = "cuda"
+    # q-chunk size of the plain full-attention path (memory control)
+    attn_chunk: int = 1024
 
     @property
     def kv_groups(self) -> int:
@@ -57,6 +63,51 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Training configuration (copies of ``repro.config``'s, same defaults)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "momentum"        # paper's optimizer (Table II) | "adamw"
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # paper C6: linear-scaling LR by the number of ACTIVE workers
+    adaptive_lr: bool = True
+    base_workers: int = 1
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    kind: str = "cosine"           # "constant" | "cosine" | "step"
+    warmup_steps: int = 200
+    total_steps: int = 64_000      # paper's workload: 64K steps
+    min_ratio: float = 0.1
+    # paper's ResNet-32 schedule is step-decay at 32k/48k
+    step_boundaries: Tuple[int, ...] = (32_000, 48_000)
+    step_factors: Tuple[float, ...] = (0.1, 0.01)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
+    microbatches: int = 1          # gradient accumulation factor
+    remat: str = "full"            # "none" | "full" | "selective"
+    zero1: bool = True             # shard optimizer state over data axis
+    layout: str = "tp"             # "tp" (megatron, baseline) | "fsdp"
+    grad_dtype: str = "float32"    # "bfloat16" halves grad-reduce wire bytes
+    compression: str = "none"      # "none" | "topk" | "ternary" (pod axis)
+    compression_ratio: float = 0.01
+    checkpoint_every: int = 1000
+    seed: int = 0
 
 
 # ---------------------------------------------------------------------------

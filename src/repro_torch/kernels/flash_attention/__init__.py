@@ -1,0 +1,3 @@
+from repro_torch.kernels.flash_attention.kernel import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention.ops import attention  # noqa: F401
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain  # noqa: F401

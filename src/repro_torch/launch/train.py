@@ -1,0 +1,165 @@
+"""Training entry point: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+Single-process training on a static cluster: the deterministic data
+pipeline, the float32-master training step and the ``Trainer`` loop, on
+the card by default (``--device cpu`` runs on the CPU). The flags are the
+reference's (``repro.launch.train``), ``--reduced`` on by default and
+``--full`` for the published widths; the JSON summary has its keys
+(``loss_first``, ``loss_last``, ``wall_s``, ``final_step``, ...) plus the
+device, the attention implementation that trained, the per-step losses,
+gradient norms and wall times, and the peak device memory.
+
+The flash-attention kernel has no backward (the reference's Pallas
+kernel has none either), so the differentiated forward runs the plain
+q-chunked attention, ``attn_impl="torch"``, on every device; the summary
+says so.
+
+Not ported yet: ``--elastic`` (ROADMAP.md Queue 1 item 2,
+``core/elastic.py``), ``--gym`` (Queue 1 item 2, the gym's execute path),
+``--ckpt-dir`` (Queue 1 item 2, ``core/checkpoint.py``) and the
+``--events``/``--profile`` recorder flags (Queue 1 item 4). The
+elastic-only flags parse and are unused, as in the reference without
+``--elastic``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.config import (OptimizerConfig, ScheduleConfig, TrainConfig,
+                                get_config, list_archs)
+from repro_torch.data.pipeline import ShardedDataset
+from repro_torch.models.builder import build_model
+from repro_torch.train.step import TrainState
+from repro_torch.train.trainer import Trainer
+
+_NOT_PORTED = {
+    "elastic": "ROADMAP.md Queue 1 item 2 (core/elastic.py)",
+    "gym": "ROADMAP.md Queue 1 item 2 (the gym's execute path)",
+    "ckpt_dir": "ROADMAP.md Queue 1 item 2 (core/checkpoint.py)",
+}
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="starcoder2-3b", choices=list_archs())
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--global-batch", type=int, default=16)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "momentum"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=100)
+    # elastic / transient options
+    ap.add_argument("--elastic", action="store_true",
+                    help="use slot-masked elastic runtime (sparse mapping)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--initial-workers", type=int, default=1)
+    ap.add_argument("--join-every", type=int, default=0,
+                    help="fill one slot every N steps (paper Fig 5)")
+    ap.add_argument("--revoke-at", type=int, default=None)
+    ap.add_argument("--monte-carlo", action="store_true",
+                    help="sample revocations from paper lifetime CDFs")
+    ap.add_argument("--server-kind", default="K80")
+    ap.add_argument("--steps-per-sec", type=float, default=4.5)
+    ap.add_argument("--naive-lr", action="store_true",
+                    help="disable adaptive LR (paper's TF default)")
+    ap.add_argument("--seed", type=int, default=0)
+    # gym: trace-driven end-to-end replay (market trace -> real training)
+    ap.add_argument("--gym", action="store_true",
+                    help="replay a market trace through the training gym")
+    ap.add_argument("--trace", default="calm")
+    ap.add_argument("--policy", default="static",
+                    choices=["static", "greedy", "lookahead"])
+    ap.add_argument("--gym-total-steps", type=int, default=64_000)
+    ap.add_argument("--gym-epoch-s", type=float, default=1800.0)
+    ap.add_argument("--gym-async-updates", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def run(args: argparse.Namespace
+        ) -> Tuple[Dict[str, Any], Trainer, TrainState]:
+    """Train as the flags say; returns (summary, trainer, final state)."""
+    for flag, where in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to PyTorch yet; "
+                f"see {where}")
+    # the flash kernel has no backward: train through the plain attention
+    cfg = get_config(args.arch, reduced=args.reduced).replace(
+        attn_impl="torch")
+    model = build_model(cfg, args.device)
+    dev = model.device
+    tcfg = TrainConfig(
+        optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr,
+                                  adaptive_lr=not args.naive_lr,
+                                  base_workers=1),
+        schedule=ScheduleConfig(kind="cosine", warmup_steps=20,
+                                total_steps=args.steps),
+        checkpoint_every=args.checkpoint_every,
+        seed=args.seed)
+    ds = ShardedDataset(cfg, global_batch=args.global_batch,
+                        seq_len=args.seq_len, seed=args.seed,
+                        device=str(dev))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    per_step: List[Dict[str, float]] = []
+    clock = [time.monotonic()]
+
+    def on_step(step: int, m: Dict) -> None:
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # syncs
+        now = time.monotonic()
+        per_step.append({"loss": loss, "grad_norm": gnorm,
+                         "step_s": now - clock[0]})
+        clock[0] = now
+
+    t0 = time.monotonic()
+    trainer = Trainer(model, tcfg, ds)
+    state = trainer.init_or_restore()
+    clock[0] = time.monotonic()
+    state = trainer.fit(state, args.steps, on_step=on_step)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.monotonic() - t0
+    log = trainer.metrics_log
+    first, last = log[0], log[-1]
+    out = {
+        "arch": args.arch, "reduced": args.reduced, "steps": args.steps,
+        "wall_s": round(wall, 2),
+        "loss_first": round(float(first["loss"]), 4),
+        "loss_last": round(float(last["loss"]), 4),
+        "elastic": False,
+        "final_step": int(state.step),
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else dev.type),
+        "attn_impl": cfg.attn_impl,
+        "attn_impl_note": "the flash kernel has no backward; training "
+                          "differentiates the plain attention",
+        "global_batch": args.global_batch, "seq_len": args.seq_len,
+        "losses": [r["loss"] for r in per_step],
+        "grad_norms": [r["grad_norm"] for r in per_step],
+        "step_s": [r["step_s"] for r in per_step],
+        "peak_device_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None),
+    }
+    return out, trainer, state
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    out, _, _ = run(parse_args(argv))
+    print(json.dumps(out, indent=1))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,10 @@
-"""GQA/MQA/MHA attention for the decode path (counterpart of
-``repro.models.attention``).
+"""GQA/MQA/MHA attention: the full-sequence path (training, evaluation)
+and the decode path (counterpart of ``repro.models.attention``).
+
+The plain full-sequence path computes attention in query chunks
+(``cfg.attn_chunk``), so the score block it holds is (B, KV, G, Cq, Skv)
+instead of (B, H, S, S). ``cfg.attn_impl == "cuda"`` runs the flash
+kernel instead, on forwards that need no gradient.
 
 Layouts follow the reference at every public function: activations
 (B, S, d), q (B, S, H, Dh), k/v (B, S, KV, Dh), caches (B, Smax, KV, Dh).
@@ -13,6 +18,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attend
+from repro_torch.kernels.flash_attention.ops import attention as flash
 from repro_torch.models import layers as L
 
 
@@ -34,20 +40,22 @@ def init_attention(gen, cfg: ModelConfig, *, dtype,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk') as one matrix product."""
+    """einsum('bsd,dhk->bshk') as one matrix product, the weight cast to
+    the activation dtype."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                 positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q (B,S,H,Dh), k/v (B,S,KV,Dh), rotary applied."""
+    dt = x.dtype
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q = L.apply_rope(q, positions, cfg.rope_theta)
@@ -58,7 +66,71 @@ def project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
 def out_proj(p: Dict[str, torch.Tensor], attn: torch.Tensor) -> torch.Tensor:
     """attn: (B, S, H, Dh) -> (B, S, d)."""
     H, Dh, d = p["wo"].shape
-    return attn.flatten(-2) @ p["wo"].reshape(H * Dh, d)
+    return attn.flatten(-2) @ p["wo"].to(attn.dtype).reshape(H * Dh, d)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention (training, evaluation)
+# ---------------------------------------------------------------------------
+
+def _chunk_attend(q_chunk: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_off: int, *, causal: bool, window: int,
+                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q_chunk: (B, Cq, KV, G, Dh); k/v: (B, Skv, KV, Dh) -> (B,Cq,KV,G,Dh).
+
+    As the reference: scores in the input dtype, then float32; masked
+    scores are -1e30 (not -inf); the softmax is float32 and its
+    probabilities are cast to the input dtype before ``P @ V``. The window
+    applies only to causal attention, as in the reference. ``kv_len``
+    masks padded kv positions."""
+    Dh = q_chunk.shape[-1]
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q_chunk, k).float()
+    scores = scores * Dh ** -0.5
+    Skv = k.shape[1]
+    kj = torch.arange(Skv, device=k.device)
+    mask = None
+    if causal:
+        qi = q_off + torch.arange(q_chunk.shape[1], device=k.device)
+        mask = kj[None, :] <= qi[:, None]
+        if window > 0:
+            mask = mask & (kj[None, :] > qi[:, None] - window)
+    if kv_len is not None:
+        kmask = kj < kv_len
+        mask = kmask if mask is None else mask & kmask
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q_chunk.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: ModelConfig, *, causal: bool = True, window: int = 0,
+           kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full attention. q: (B,S,H,Dh), k/v: (B,Skv,KV,Dh) -> (B,S,H,Dh).
+
+    ``cfg.attn_impl == "cuda"`` runs the flash kernel (forward only: it
+    refuses inputs that need a gradient); ``"torch"`` the q-chunked plain
+    path, in chunks of ``cfg.attn_chunk`` queries, or one chunk when S is
+    not a multiple of it. A loop over the chunks takes the place of the
+    reference's ``lax.scan``."""
+    if cfg.attn_impl == "cuda":
+        if kv_len is not None:
+            raise ValueError("attn_impl='cuda' has no kv_len mask (the "
+                             "reference's flash path has none either)")
+        return flash(q, k, v, causal=causal, window=window, impl="cuda")
+    if cfg.attn_impl != "torch":
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, Dh)
+    C = min(cfg.attn_chunk, S)
+    if S % C != 0:
+        C = S
+    outs = [_chunk_attend(qg[:, i:i + C], k, v, i, causal=causal,
+                          window=window, kv_len=kv_len)
+            for i in range(0, S, C)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(B, S, H, Dh)
 
 
 def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,5 +1,6 @@
 """Model builder (counterpart of ``repro.models.builder``): a uniform
-callable surface over the dense stack, bound to one device.
+callable surface over the dense stack (init, apply, decode), bound to one
+device.
 """
 from __future__ import annotations
 
@@ -21,10 +22,18 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
-    def init(self, generator: Optional[torch.Generator]) -> Tree:
+    def init(self, generator: Optional[torch.Generator],
+             dtype: Optional[torch.dtype] = None) -> Tree:
         """Parameters drawn from ``generator`` (which lives on
-        ``self.device``)."""
-        return transformer.init_params(self.cfg, generator, self.device)
+        ``self.device``), stored in ``cfg.dtype`` or, for training's
+        masters, in ``dtype=torch.float32``."""
+        return transformer.init_params(self.cfg, generator, self.device,
+                                       dtype)
+
+    def apply(self, params: Tree, batch: Dict[str, torch.Tensor],
+              remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward: (logits (B, S, V), aux loss)."""
+        return transformer.forward(params, self.cfg, batch, remat=remat)
 
     def init_cache(self, batch: int, max_len: int,
                    device: Optional[torch.device] = None) -> Tree:

@@ -27,9 +27,10 @@ def init_mlp(gen, d_model: int, d_ff: int, gated: bool, *, dtype,
 
 
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    h = x @ p["wi"]
+    dt = x.dtype
+    h = x @ p["wi"].to(dt)
     if "wg" in p:
-        h = F.silu(x @ p["wg"]) * h
+        h = F.silu(x @ p["wg"].to(dt)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"]
+    return h @ p["wo"].to(dt)

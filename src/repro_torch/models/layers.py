@@ -2,12 +2,14 @@
 embedding and unembedding.
 
 Parameters are nested dicts of tensors laid out like the reference's
-unboxed pytrees (``repro.models.layers``). Weight matrices, biases and
-embeddings are stored once in ``cfg.dtype``. The reference keeps float32
-masters and casts them to ``cfg.dtype`` at every use (``.astype(dt)``);
-casting once at init gives the same values without the per-use copy. RMS
-gammas stay float32, because the reference reads them in float32
-(``rms_norm`` upcasts ``gamma``, never downcasts it).
+unboxed pytrees (``repro.models.layers``). The reference keeps float32
+masters and casts each weight to the activation dtype where it is used
+(``.astype(dt)``); the port does the same, so training holds float32
+masters. For serving, weight matrices, biases and embeddings are stored
+once in ``cfg.dtype``, which makes every cast at use a no-op and gives
+the same values without the per-use copy. RMS gammas stay float32 either
+way, because the reference reads them in float32 (``rms_norm`` upcasts
+``gamma``, never downcasts it).
 """
 from __future__ import annotations
 
@@ -94,11 +96,16 @@ def init_embed(gen, vocab: int, d_model: int, tie: bool, *, dtype,
     return p
 
 
-def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens]
+def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Gather, then cast to ``dtype`` (default: the stored dtype): the
+    reference's cast-then-gather gives the same numbers, and this way only
+    the gathered rows are copied."""
+    x = params["tok"][tokens]
+    return x if dtype is None else x.to(dtype)
 
 
 def unembed(params: Dict[str, torch.Tensor], x: torch.Tensor,
             tie: bool) -> torch.Tensor:
     w = params["tok"].T if tie else params["out"]
-    return x @ w
+    return x @ w.to(x.dtype)

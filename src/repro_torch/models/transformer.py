@@ -1,14 +1,15 @@
 """The dense decoder-only stack (counterpart of the dense family of
-``repro.models.transformer``): parameters, the decode cache, and the
-one-token decode cell that serving runs for every prompt and generated
-token.
+``repro.models.transformer``): parameters, the full-sequence forward that
+training and evaluation run, the decode cache, and the one-token decode
+cell that serving runs for every prompt and generated token.
 
 The reference scans stacked layer parameters; PyTorch runs eagerly, so
 the port keeps the stacked layout (every layer leaf has a leading
 ``layers`` axis, as in the reference pytree) and loops over it in Python.
 
-Public entry points (used by the builder, serve step and engine):
-    init_params(cfg, generator, device)              -> params tree
+Public entry points (used by the builder, train/serve steps and engine):
+    init_params(cfg, generator, device, dtype)       -> params tree
+    forward(params, cfg, batch, remat)               -> (logits, aux)
     init_decode_cache(cfg, batch, max_len, device)   -> cache tree
     decode_step(params, cfg, cache, batch)           -> (logits, cache)
 """
@@ -17,12 +18,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_index, tree_map
+from repro_torch.tree import tree_map, tree_unbind
 
 Tree = Dict[str, Any]
 
@@ -66,11 +68,16 @@ def _init_dense_layer(gen, cfg: ModelConfig, dtype, device) -> Tree:
     }
 
 
-def init_params(cfg: ModelConfig, generator, device) -> Tree:
+def init_params(cfg: ModelConfig, generator, device,
+                dtype: Optional[torch.dtype] = None) -> Tree:
     """Seeded parameters on ``device`` (``generator`` must live there;
-    ``None`` is allowed on the ``meta`` device, for shapes only)."""
+    ``None`` is allowed on the ``meta`` device, for shapes only). Weight
+    matrices, biases and embeddings are stored in ``dtype``: ``cfg.dtype``
+    by default (serving), ``torch.float32`` for training's masters, as the
+    reference holds them; the draws are float32 either way. RMS gammas are
+    float32 always."""
     require_dense(cfg)
-    dt = L.torch_dtype(cfg.dtype)
+    dt = dtype if dtype is not None else L.torch_dtype(cfg.dtype)
     layers = [_init_dense_layer(generator, cfg, dt, device)
               for _ in range(cfg.num_layers)]
     return {
@@ -79,6 +86,62 @@ def init_params(cfg: ModelConfig, generator, device) -> Tree:
         "final_norm": L.init_rms(generator, cfg.d_model, device),
         "layers": tree_map(lambda *xs: torch.stack(xs), *layers),
     }
+
+
+# ---------------------------------------------------------------------------
+# Forward (training, evaluation)
+# ---------------------------------------------------------------------------
+
+def _attn_block(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, window: int,
+                positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    h = L.rms_norm(x, lp["ln1"]["gamma"], cfg.norm_eps)
+    q, k, v = A.project_qkv(lp["attn"], h, cfg, positions=positions)
+    att = A.attend(q, k, v, cfg, causal=causal, window=window)
+    return x + A.out_proj(lp["attn"], att)
+
+
+def _dense_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig, window: int,
+                 positions: torch.Tensor, causal: bool) -> torch.Tensor:
+    x = _attn_block(lp, x, cfg, window=window, positions=positions,
+                    causal=causal)
+    return _mlp_block(lp, x, cfg)
+
+
+def _dense_trunk(params: Tree, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, causal: bool = True,
+                 remat: bool = True) -> torch.Tensor:
+    """The layer loop. Each layer's parameters come from one ``unbind(0)``
+    of every stacked leaf per forward: indexing ``leaf[i]`` inside the
+    loop would give each layer a ``select`` whose backward allocates a
+    zero tensor the size of the whole stack. ``remat`` recomputes each
+    layer in the backward (the reference's ``jax.checkpoint`` around the
+    scanned body)."""
+    layers = tree_unbind(params["layers"])
+    for lp, win in zip(layers, _window_schedule(cfg, len(layers))):
+        if remat:
+            x = checkpoint(_dense_layer, x, lp, cfg, win, positions, causal,
+                           use_reentrant=False)
+        else:
+            x = _dense_layer(x, lp, cfg, win, positions, causal)
+    return x
+
+
+def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward of the dense family. batch = {tokens: (B, S)}.
+
+    Returns (logits (B, S, V) in ``cfg.dtype``, aux): ``aux`` is the MoE
+    auxiliary loss, a float32 zero for the dense family, as in the
+    reference."""
+    require_dense(cfg)
+    dt = L.torch_dtype(cfg.dtype)
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens, dt)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _dense_trunk(params, cfg, x, pos, remat=remat)
+    x = L.rms_norm(x, params["final_norm"]["gamma"], cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg.tie_embeddings)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -132,10 +195,11 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
     """
     require_dense(cfg)
     pos = cache["pos"]
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(params["embed"], batch["tokens"], L.torch_dtype(cfg.dtype))
     ks, vs = cache["kv"]["k"], cache["kv"]["v"]
+    layers = tree_unbind(params["layers"])
     for i, win in enumerate(_window_schedule(cfg, cfg.num_layers)):
-        lp = tree_index(params["layers"], i)
+        lp = layers[i]
         x = _decode_attn_layer(lp, x, cfg, ks[i], vs[i], pos, win, advance)
         x = _mlp_block(lp, x, cfg)
     x = L.rms_norm(x, params["final_norm"]["gamma"], cfg.norm_eps)

@@ -1,2 +1,2 @@
-"""Step factories; only the serving steps are ported so far (ROADMAP.md
-Queue 1 item 2 ports the training step)."""
+"""Training and serving steps, and the training loop (counterpart of
+``repro.train``)."""

@@ -1,15 +1,172 @@
-"""serve_step / prefill_step factories (counterpart of the serving half of
-``repro.train.step``)."""
+"""train_step / serve_step / prefill_step factories (counterpart of
+``repro.train.step``).
+
+``make_train_step`` builds the training step: loss -> gradients (with each
+layer recomputed in the backward when ``tcfg.remat`` asks for it) ->
+clip -> LR schedule x adaptive worker scale -> optimizer update.
+Microbatching accumulates gradients over ``tcfg.microbatches`` slices of
+the batch, so the activation peak is one microbatch. The adaptive-LR
+multiplier (paper C6) is a runtime argument of the step.
+
+Training holds float32 masters (``init_state``), as the reference does;
+the forward casts each weight to ``cfg.dtype`` where it is used. The step
+updates the masters and the optimizer state in place (see
+``repro_torch.optim.optimizers``) and returns a ``TrainState`` holding
+the same tensors. It never switches the attention implementation: the
+flash kernel has no backward, so the caller builds the training model
+with ``attn_impl="torch"``.
+
+Not ported: the SPMD controls (``param_shardings``, ``zero1_mask``) and
+``grad_dtype="bfloat16"``, ROADMAP.md Queue 1 item 7.
+"""
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Sequence, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.models.builder import Model
+from repro_torch.optim import make_optimizer, make_schedule
+from repro_torch.optim.optimizers import clip_by_global_norm, global_norm
+from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Dict[str, Any]
+_SPMD = "ROADMAP.md Queue 1 item 7 (sharding and launch tooling)"
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Tree             # float32 masters
+    opt: Tree
+    step: int
+
+
+def init_state(model: Model, tcfg: TrainConfig,
+               generator: Optional[torch.Generator] = None,
+               params: Optional[Tree] = None) -> TrainState:
+    """Float32 masters drawn from ``generator`` (default: seeded with
+    ``tcfg.seed`` on the model's device), or the given ``params``, and a
+    fresh optimizer state."""
+    if params is None:
+        gen = generator if generator is not None \
+            else model.generator(tcfg.seed)
+        params = model.init(gen, dtype=torch.float32)
+    opt = make_optimizer(tcfg.optimizer).init(params)
+    return TrainState(params=params, opt=opt, step=0)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _token_weights(cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                   S: int) -> torch.Tensor:
+    """Per-position loss weights. The reference masks the VLM image
+    prefix; the port's families weigh every position."""
+    if cfg.family == "vlm":
+        raise NotImplementedError("vlm loss weights: ROADMAP.md Queue 1 "
+                                  "item 6 (multimodal)")
+    return torch.ones((1, S), dtype=torch.float32,
+                      device=batch["labels"].device)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stable cross-entropy in float32. It gathers the gold logit where
+    the reference multiplies by a one-hot: the same function, without a
+    (B, S, V) one-hot."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    nll = lse - gold
+    if weights is None:
+        return nll.mean()
+    w = weights.expand_as(nll)
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def loss_fn(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
+            tcfg: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, {loss, aux}). The dense family's aux (MoE router)
+    loss is zero, so the total is the cross-entropy."""
+    cfg = model.cfg
+    logits, aux = model.apply(params, batch, remat=tcfg.remat != "none")
+    w = _token_weights(cfg, batch, logits.shape[1])
+    loss = cross_entropy(logits, batch["labels"], w)
+    return loss, {"loss": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# train_step
+# ---------------------------------------------------------------------------
+
+def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
+                    zero1_mask=None
+                    ) -> Callable[..., Tuple[TrainState, Dict[str, Any]]]:
+    """``train_step(state, batch, lr_scale=1.0) -> (state, metrics)``;
+    metrics hold ``loss``, ``aux`` and ``grad_norm`` (device scalars) and
+    ``lr`` (a float)."""
+    if param_shardings is not None or zero1_mask is not None:
+        raise NotImplementedError(f"param_shardings/zero1: {_SPMD}")
+    if tcfg.grad_dtype != "float32":
+        raise NotImplementedError(f"grad_dtype={tcfg.grad_dtype!r}: {_SPMD}")
+    opt = make_optimizer(tcfg.optimizer)
+    sched = make_schedule(tcfg.schedule)
+    base_lr = tcfg.optimizer.lr
+
+    def grads_of(params: Tree, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+        # leaves that share the masters' storage and track gradients
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            total, metrics = loss_fn(model, leaves, batch, tcfg)
+            grads = torch.autograd.grad(
+                total, [t for _, t in tree_leaves(leaves)])
+        it = iter(grads)
+        return (tree_map(lambda _: next(it), leaves),
+                {k: v.detach() for k, v in metrics.items()})
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   lr_scale: float = 1.0
+                   ) -> Tuple[TrainState, Dict[str, Any]]:
+        k = tcfg.microbatches
+        if k > 1:
+            # a + b / k from zeros, as the reference's scan accumulates
+            grads, metrics = None, None
+            for i in range(k):
+                mbatch = {key: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+                          for key, x in batch.items()}
+                g, m = grads_of(state.params, mbatch)
+                if grads is None:
+                    grads = tree_map(lambda b: b.div_(k), g)
+                    metrics = {key: v / k for key, v in m.items()}
+                else:
+                    tree_map(lambda a, b: a.add_(b.div_(k)), grads, g)
+                    metrics = {key: metrics[key] + v / k
+                               for key, v in m.items()}
+        else:
+            grads, metrics = grads_of(state.params, batch)
+
+        if tcfg.optimizer.grad_clip > 0:
+            grads, gnorm = clip_by_global_norm(grads, tcfg.optimizer.grad_clip)
+        else:
+            gnorm = global_norm(grads)
+        lr = base_lr * sched(state.step) * float(lr_scale)
+        new_opt = opt.update(grads, state.opt, state.params, lr)
+        del grads
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+        return TrainState(params=state.params, opt=new_opt,
+                          step=state.step + 1), metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serve_step / prefill_step (decode)
+# ---------------------------------------------------------------------------
 
 
 def make_serve_step(model: Model, *, sample: str = "greedy"

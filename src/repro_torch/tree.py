@@ -6,7 +6,7 @@ unboxed pytrees so the two packages can be compared leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -29,6 +29,10 @@ def tree_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix.rstrip("/"), tree
 
 
-def tree_index(tree: Dict, i: int) -> Dict:
-    """Leading-axis slice of every leaf: one layer of a stacked tree."""
-    return tree_map(lambda x: x[i], tree)
+def tree_unbind(tree: Dict) -> List[Dict]:
+    """The layers of a stacked tree, from one ``unbind(0)`` per leaf:
+    every layer is a view, and the backward of each leaf's unbind is one
+    stack of the layer gradients."""
+    parts = tree_map(lambda x: x.unbind(0), tree)
+    n = len(next(tree_leaves(parts))[1])
+    return [tree_map(lambda xs: xs[i], parts) for i in range(n)]

@@ -86,3 +86,71 @@ def test_decode_attention_kernel_refuses_bad_inputs():
     with pytest.raises(ValueError):
         decode_attention(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2),
                          lens.cpu())
+
+
+# --- flash attention ------------------------------------------------------
+
+# B, Sq, Sk, H, KV, D, causal, window: chip_smoke.py's flash-vs-plain
+# shapes first, then edge cases
+FLASH_CASES = [
+    (4, 2048, 2048, 24, 2, 128, True, 0),      # starcoder2 forward
+    (1, 4096, 4096, 32, 16, 128, True, 1024),  # gemma3 local layer
+    (2, 2048, 2048, 48, 1, 128, True, 0),      # MQA (granite)
+    (2, 1000, 1000, 24, 2, 128, True, 0),      # ragged: not a tile multiple
+    (2, 1000, 1000, 24, 2, 128, False, 0),     # non-causal
+    (2, 1024, 1024, 16, 4, 64, True, 256),     # D=64, window
+    (2, 1000, 777, 8, 2, 128, False, 0),       # non-causal, Sk != Sq
+    (2, 300, 300, 8, 4, 128, False, 64),       # non-causal with a window
+    (2, 513, 513, 8, 2, 64, True, 100),        # D=64, ragged, window
+    (3, 37, 37, 4, 2, 16, True, 5),            # the CPU tests' widths
+]
+
+
+def _flash_inputs(case, dtype, dev, seed=0, scale=1.0):
+    """q, k, v as views of one fused projection output (B, S, H+2KV, D),
+    so the kernel reads strided model-layout tensors, as after a fused
+    QKV product."""
+    B, Sq, Sk, H, KV, D, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (scale * torch.randn(B, Sq, H, D, generator=g, device=dev)).to(dtype)
+    kv = torch.randn(B, Sk, 2 * KV + 8, D, generator=g, device=dev).to(dtype)
+    return q, kv[:, :, 8:8 + KV], kv[:, :, 8 + KV:], causal, window
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(case, dtype):
+    from repro_torch.kernels.flash_attention import (attention,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    dev = _cuda()
+    for scale in (1.0, 4.0):                    # 4: sharp softmax rows
+        q, k, v, causal, window = _flash_inputs(case, dtype, dev,
+                                                scale=scale)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        _assert_close(got, want, dtype)
+        got = attention(q, k, v, causal=causal, window=window, impl="cuda")
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_bad_inputs():
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = _cuda()
+    q, k, v, _, _ = _flash_inputs(FLASH_CASES[-1], torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(torch.cat([t, t], -1) for t in (q, k, v)))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(RuntimeError, match="no gradient either"):
+        flash_attention(q.float().requires_grad_(), k.float(), v.float())
+    with torch.no_grad():
+        flash_attention(q.float().requires_grad_(), k.float(), v.float())
