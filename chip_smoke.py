@@ -4,42 +4,68 @@
     python3 chip_smoke.py
 
 Drives the port's main paths at full width with random weights from a
-seed: serving starcoder2-3b (30 layers, d_model 3072, 24 heads / 2 KV
-heads, bf16) through the hand-written decode-attention CUDA kernel, its
-full-sequence forward through the hand-written flash-attention CUDA
-kernel, and its training step, in phases that each print their name and
-``ok``:
+seed, through the four hand-written CUDA kernels (decode attention,
+flash attention, the Mamba-2 SSD scan and the RWKV-6 WKV recurrence):
+serving starcoder2-3b (30 layers, d_model 3072, 24 heads / 2 KV heads,
+bf16), its full-sequence forward and its training step; the full-width
+forwards of zamba2-1.2b (38 Mamba-2 layers, d_model 2048, 64 SSM heads x
+P 64, N 64, a shared attention block every 6 layers) and rwkv6-7b (32
+layers, d_model 4096, 64 heads x 64, d_ff 14336); and serving both. In
+phases that each print their name and ``ok``:
 
 1. environment: torch, CUDA, the card and its power limit;
-2. build: compile both kernels from ``src/repro_torch`` with nvcc, one
-   nvcc per source, started together;
+2. build: compile the four kernels from ``src/repro_torch`` with nvcc,
+   one nvcc per source, started together, and print their ptxas lines;
 3. kernel-vs-plain: the decode kernel against its plain PyTorch version
    on the serve shape, a long cache, a window, one KV head, ragged
-   lengths (0 and past the cache), in bf16 and fp32;
+   lengths (0 and past the cache) and zamba2's shared block (H = KV =
+   32, D = 64), in bf16 and fp32;
 4. flash-vs-plain: the flash kernel against its plain version on the
    starcoder2 forward shape, a gemma3 local layer, MQA, a ragged length,
-   non-causal attention and D=64, in bf16 and fp32;
-5. decode-cell: full-width decode steps with the kernel and with the
-   plain version on the same cache; logits must agree;
-6. serve: the serve entry point's engine answers 8 requests undisturbed, then
-   again with a hard revocation of one slot and a drain that migrates
-   work to a second engine; the migrated tokens must equal the
+   non-causal attention, D=64 and zamba2's shared block, in bf16 and fp32;
+5. ssd-vs-plain: the SSD kernel against its plain version (the per-token
+   recurrence) on zamba2's forward shape, a ragged S and fast decays,
+   with B and C read as column slices, in bf16 and fp32;
+6. rwkv6-vs-plain: the WKV kernel against its plain version on rwkv6's
+   forward shape with pathological decays, with a nonzero and a zero
+   initial state, and a ragged S; outputs and final states (fp32, as the
+   model passes them);
+7. decode-cell: full-width starcoder2 decode steps with the kernel and
+   with the plain version on the same cache; logits must agree;
+8. serve: the serve entry point's engine answers 8 requests undisturbed,
+   then again with a hard revocation of one slot and a drain that
+   migrates work to a second engine; the migrated tokens must equal the
    undisturbed ones, and the kernel must have run once per layer per
    decode cell;
-7. profile: one decode step under torch.profiler (device busy share);
-8. forward: ``Model.apply`` on one batch of 4 x 2048 tokens with the
-   flash kernel and with the plain attention; logits must agree, and the
-   kernel must run once per layer; the kernel's device time per forward
-   from torch.profiler;
-9. train: three steps of ``python -m repro_torch.launch.train --full``
-   (through its ``run``), finite losses and gradient norms, the first
-   loss near ln(vocab); a fourth step under torch.profiler; then
-   ``evaluate_accuracy`` of the trained weights through the flash kernel
-   and through the plain attention;
-10. train-parity: three ``Trainer.fit`` steps of reduced starcoder2-3b
-    and gemma3-27b in float32 on the card against the same steps on the
-    CPU, from the same numpy weights;
-11. timing: device time of each kernel, its plain version and
+9. profile: one decode step under torch.profiler (device busy share);
+10. forward: ``Model.apply`` of starcoder2-3b on one batch of 4 x 2048
+    tokens through the flash kernel and through the plain attention;
+    logits must agree, and the kernel must run once per layer; device
+    time from torch.profiler;
+11. train: three steps of ``python -m repro_torch.launch.train --full``
+    (through its ``run``), finite losses and gradient norms, the first
+    loss near ln(vocab); a fourth step under torch.profiler; then
+    ``evaluate_accuracy`` of the trained weights through the flash kernel
+    and through the plain attention;
+12. train-parity: three ``Trainer.fit`` steps of reduced starcoder2-3b,
+    gemma3-27b, zamba2-1.2b and rwkv6-7b in float32 on the card against
+    the same steps on the CPU, from the same numpy weights;
+13. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
+    through the kernels (38 SSD and 6 flash launches) and through the
+    plain paths, in bf16 and in float32: the float32 logits must agree
+    within 1e-3 x max|logit|, and the bf16 kernel path must be no further
+    from them, in root mean square, than 1.5x the bf16 plain path (bf16
+    rounding alone moves these random models' logits by several percent
+    of max|logit|); a profiled device breakdown;
+14. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
+    path being the sequential scan, at the same B=4, S=2048;
+15. serve-recurrent: each family served at full width as in phase 8
+    (undisturbed, then revoke + drain; migrated tokens equal), zamba2's
+    decode cell running 6 decode-attention launches; zamba2 decode logits
+    through the kernel and the plain attention must agree, in float32
+    within 1e-3 and in bf16 as the forwards' gate says;
+16. timing: device time of each kernel, its plain version and, where
+    one PyTorch call computes the same function,
     ``scaled_dot_product_attention`` (the library yardstick, which the
     port never calls) beside the kernel's bound.
 
@@ -72,6 +98,10 @@ REPLACES = "src/repro/kernels/decode_attention/kernel.py:93"
 SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:112"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:76"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+WKV_REPLACES = "src/repro/kernels/rwkv6/kernel.py:83"
+WKV_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
 
 # name: (B, H, KV, S, D, lengths or None for full, window)
 SHAPES = {
@@ -80,6 +110,7 @@ SHAPES = {
     "window": (4, 24, 2, 512, 128, [512, 300, 50, 0], 128),
     "kv1": (4, 24, 1, 512, 128, [512, 257, 33, 1], 0),
     "ragged": (4, 24, 2, 512, 128, [0, 1, 333, 700], 0),
+    "zamba2": (4, 32, 32, 512, 64, [512, 300, 17, 0], 0),  # shared block
 }
 # name: (B, Sq, Sk, H, KV, D, causal, window)
 FLASH_SHAPES = {
@@ -89,11 +120,25 @@ FLASH_SHAPES = {
     "ragged": (2, 1000, 1000, 24, 2, 128, True, 0),
     "noncausal": (2, 1000, 1000, 24, 2, 128, False, 0),
     "d64": (2, 1024, 1024, 16, 4, 64, True, 256),
+    "zamba2": (4, 2048, 2048, 32, 32, 64, True, 0),    # shared block
+}
+# name: (B, S, H, P, N, lowest dA); dA is uniform in [lowest, -0.01]
+SSD_SHAPES = {
+    "forward": (4, 2048, 64, 64, 64, -0.5),            # zamba2-1.2b
+    "ragged": (2, 1000, 8, 64, 64, -0.5),
+    "fast_decay": (2, 333, 4, 64, 64, -20.0),
+}
+# name: (B, S, H, D, nonzero initial state); decays w = exp(-exp(U(-8, 4)))
+WKV_SHAPES = {
+    "forward": (4, 2048, 64, 64, True),                # rwkv6-7b
+    "zero_s0": (4, 2048, 64, 64, False),
+    "ragged": (2, 1000, 8, 64, True),
 }
 FORWARD_BATCH = (4, 2048)
 TRAIN_ARGS = ["--full", "--arch", "starcoder2-3b", "--steps", "3",
               "--global-batch", "2", "--seq-len", "1024"]
-PARITY_ARCHS = ("starcoder2-3b", "gemma3-27b")
+PARITY_ARCHS = ("starcoder2-3b", "gemma3-27b", "zamba2-1.2b", "rwkv6-7b")
+RECURRENT_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
 SERVE_ARGS = ["--no-reduced", "--requests", "8", "--max-batch", "4",
               "--max-len", "512", "--prompt-len", "16",
               "--max-new-tokens", "32", "--seed", "0"]
@@ -202,6 +247,69 @@ def flash_bound_ms(shape, dtype):
                                        else "bytes"), flops, nbytes
 
 
+def ssd_inputs(torch, shape, dtype, gen):
+    """xdt (B, S, H, P), and B, C (B, S, N) as column slices of one
+    conv-output-like tensor, as the model hands them to the kernel; dA
+    (B, S, H) float32 uniform in [lowest, -0.01]."""
+    B, S, H, P, N, lo = shape
+    dt = getattr(torch, dtype)
+    xdt = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt)
+    conv = torch.randn(B, S, H * P + 2 * N, generator=gen,
+                       device="cuda").to(dt)
+    dA = lo + (-0.01 - lo) * torch.rand(B, S, H, generator=gen,
+                                        device="cuda")
+    return xdt, conv[..., H * P:H * P + N], conv[..., H * P + N:], dA
+
+
+def ssd_bound_ms(shape, dtype):
+    """Least time for the work: xdt, B, C and dA read once and y written
+    once against the memory rate; and the chunked algorithm's operations
+    at 64-token chunks with C B^T formed once per chunk for all heads and
+    only its lower triangle used (2 Q(Q+1)/2 N per chunk and row, plus
+    2 Q(Q+1)/2 P + 4 Q N P per chunk, row and head), against the peak for
+    the dtype."""
+    B, S, H, P, N, _ = shape
+    size = 2 if dtype == "bfloat16" else 4
+    Q, nc = 64, -(-S // 64)
+    tri = Q * (Q + 1) // 2
+    flops = B * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * size + 4 * B * S * H
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops, nbytes
+
+
+def wkv_inputs(torch, shape, gen):
+    """r, k, v (B, S, H, D) as views of one fused projection output, the
+    decays drawn as the reference's kernel test draws them (down to
+    exp(-e^4) ~ 1.9e-24), u (H, D) and s0 (B, H, D, D) or None; float32,
+    as the model passes them."""
+    B, S, H, D, with_s0 = shape
+    rkv = torch.randn(B, S, H, 3 * D, generator=gen, device="cuda")
+    w = torch.exp(-torch.exp(-8 + 12 * torch.rand(
+        B, S, H, D, generator=gen, device="cuda")))
+    u = torch.randn(H, D, generator=gen, device="cuda")
+    s0 = torch.randn(B, H, D, D, generator=gen, device="cuda") \
+        if with_s0 else None
+    return rkv[..., :D], rkv[..., D:2 * D], rkv[..., 2 * D:], w, u, s0
+
+
+def wkv_bound_ms(shape):
+    """Least time for the work: r, k, v, w, u and s0 read once and o and
+    the final state written once (float32) against the memory rate; and
+    the recurrence's 5 flops per state entry per token and head (r^T S,
+    then w * S + k v^T) against the float32 peak."""
+    B, S, H, D, with_s0 = shape
+    flops = 5 * B * S * H * D * D
+    nbytes = 4 * (5 * B * S * H * D + H * D
+                  + (2 if with_s0 else 1) * B * H * D * D)
+    t_ops = flops / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops, nbytes
+
+
 def build_all(build, sources):
     """Compile every kernel at once, one nvcc per source; returns
     {name: seconds} and raises on the first failed build."""
@@ -257,6 +365,260 @@ def device_ms(torch, fn, n_inputs, calls=64, reps=5):
     return start.elapsed_time(end) / (reps * calls)
 
 
+def serve_and_migrate(torch, serve, args, model, params, card_line,
+                      expect):
+    """The serve entry point's engine on ``args``: an undisturbed run of
+    ``args.requests`` requests, then the same requests again with a hard
+    revocation of slot 1 and a drain that migrates the in-flight work to
+    a second engine. The migrated requests must give the undisturbed
+    tokens. ``expect`` lists (wrapper, launches per decode cell): every
+    count is set to 0 first, and after the undisturbed run and after all
+    runs it must be that many per decode cell. Returns the undisturbed
+    run's numbers and the decode cells of all engines (``cells``)."""
+    cfg = model.cfg
+    for fn, _ in expect:
+        fn.launches = 0                           # the path's run starts
+    base = serve.make_engine(args, model, params)
+    reqs = serve.make_requests(args, cfg.vocab_size)
+    step_ms, t0 = [], time.monotonic()
+    for r in reqs:
+        base.submit(r)
+    while base.has_work():
+        n0, s0 = base.tokens_decoded, time.monotonic()
+        base.step()
+        torch.cuda.synchronize()
+        if base.tokens_decoded > n0:
+            step_ms.append((time.monotonic() - s0) * 1e3)
+    wall = time.monotonic() - t0
+    summary = serve.summarize(args, base, reqs, None, wall)
+    expected = {r.rid: r.generated for r in reqs}
+    check(all(r.done for r in reqs), "undisturbed run left work")
+    for fn, per_cell in expect:
+        check(fn.launches == per_cell * base.decode_cells,
+              f"the undisturbed run launched {fn.__name__} {fn.launches} "
+              f"times, not {per_cell} per decode cell x {base.decode_cells}")
+    tps = base.tokens_decoded / wall
+    mean_step = sum(step_ms) / len(step_ms)
+    print(f"  {cfg.name} undisturbed: {base.tokens_decoded} tokens in "
+          f"{wall:.2f} s = {tps:.1f} tokens/s, mean decode step "
+          f"{mean_step:.2f} ms over {len(step_ms)} steps, "
+          f"{base.decode_cells} decode cells [{card_line}]")
+    print("  summary " + json.dumps(summary))
+
+    first = serve.make_engine(args, model, params)
+    reqs = serve.make_requests(args, cfg.vocab_size)
+    for r in reqs:
+        first.submit(r)
+    while not all(len(r.generated) >= 4 for r in first.slots
+                  if r is not None) or first.n_active < args.max_batch:
+        first.step()
+    lost = first.revoke_slot(1)                  # fired: no warning
+    for _ in range(3):
+        first.step()
+    migrated = first.begin_drain(grace_tokens=2)  # warned
+    second = serve.make_engine(args, model, params)
+    for r in migrated:
+        check(second.submit(r), f"request {r.rid} refused on migration")
+    first.run_to_completion()
+    second.run_to_completion()
+    torch.cuda.synchronize()
+    same = sum(r.generated == expected[r.rid] for r in reqs)
+    cells = base.decode_cells + first.decode_cells + second.decode_cells
+    print(f"  revoke+drain run: slot 1 lost {lost.timing.tokens_lost} "
+          f"tokens, {len(migrated)} requests migrated, tokens_replayed "
+          f"{first.tokens_replayed}; tokens equal to the undisturbed "
+          f"run: {same}/{len(reqs)}")
+    print("  kernel launches " + ", ".join(
+        f"{fn.__name__} {fn.launches} = {per_cell} x {cells} decode cells"
+        for fn, per_cell in expect))
+    check(same == len(reqs) and all(r.done for r in reqs),
+          "migrated requests diverged from the undisturbed run")
+    for fn, per_cell in expect:                   # and ends
+        check(fn.launches == per_cell * cells,
+              f"the main path launched {fn.__name__} {fn.launches} times, "
+              f"not {per_cell} per decode cell x {cells}")
+    return {"tokens_per_s": tps, "decode_step_ms_mean": mean_step,
+            "decode_steps": len(step_ms), "decode_cells": base.decode_cells,
+            "wall_s": wall, "migrated": len(migrated), "cells": cells,
+            "tokens_equal": same}
+
+
+def rel(a, b):
+    """max|a - b| / max|b|, in float32."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def rms(a, b):
+    """Root mean square of a - b, in float32."""
+    return float((a.float() - b.float()).pow(2).mean().sqrt())
+
+
+def forward_check(torch, model, plain_model, params, batch, expect,
+                  card_line, fp32_gate=False):
+    """``Model.apply`` on one batch through the kernels (``model``) and
+    through the plain paths (``plain_model``), finite logits of the right
+    shape. ``expect`` lists (wrapper, launches, device-kernel name):
+    every wrapper's count is set to 0 just before the kernel path's
+    forward and read just after, and must equal its launches.
+
+    The gate on the logits: without ``fp32_gate``, the two paths' bf16
+    logits within 0.05 x max|logit|. With it, both paths also run in
+    float32 (the weights cast up), where they must agree within 1e-3 x
+    max|logit|, and the kernel path's bf16 logits must lie no further
+    from the plain path's float32 logits, in root mean square, than 1.5x
+    the plain path's own bf16 logits do: random full-width models amplify
+    bf16 rounding to several percent of max|logit| on either path, so the
+    bf16 gate is held against that floor, measured in the same run.
+
+    Then one more forward under torch.profiler: device busy time, each
+    kernel's device time and launches (which must equal its launches
+    too), and the largest kernels. Returns stats."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import with_impls
+    from repro_torch.tree import tree_map
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+
+    with torch.no_grad():
+        t0 = time.monotonic()
+        want, _ = plain_model.apply(params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t0
+        for fn, _, _ in expect:
+            fn.launches = 0                       # the path's run starts
+        t0 = time.monotonic()
+        got, aux = model.apply(params, batch)
+        torch.cuda.synchronize()
+        fwd_s = time.monotonic() - t0
+        launches = [fn.launches for fn, _, _ in expect]   # and ends
+    for (fn, n, _), got_n in zip(expect, launches):
+        check(got_n == n, f"{got_n} {fn.__name__} launches in one "
+                          f"{cfg.name} forward, expected {n}")
+    check(torch.isfinite(got.float()).all().item()
+          and tuple(got.shape) == (B, S, cfg.vocab_size)
+          and float(aux) == 0.0, "forward output malformed")
+    rel16 = rel(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    counts = ", ".join(f"{fn.__name__} {n}" for (fn, _, _), n
+                       in zip(expect, launches))
+    print(f"  {cfg.name} full width, B={B} S={S}: bf16 logits kernels vs "
+          f"plain max|diff|/max|logit| {rel16:.3e}, argmax agreement "
+          f"{agree:.4f}; launches: {counts}; forward {fwd_s * 1e3:.1f} ms, "
+          f"plain path {plain_s * 1e3:.1f} ms [{card_line}]")
+    stats = {"B": B, "S": S, "wall_ms": fwd_s * 1e3,
+             "plain_wall_ms": plain_s * 1e3, "logit_rel_diff": rel16,
+             "argmax_agreement": agree}
+    if not fp32_gate:
+        check(rel16 <= 0.05, f"full-width {cfg.name} forward: kernel path "
+                             f"and plain path disagree (tol 0.05)")
+    else:
+        params32 = tree_map(lambda t: t.float(), params)
+        with torch.no_grad():
+            k32 = with_impls(model, dtype="float32").apply(
+                params32, batch)[0]
+            p32 = with_impls(plain_model, dtype="float32").apply(
+                params32, batch)[0]
+        del params32
+        rel32 = rel(k32, p32)
+        floor, rms_k = rms(want, p32), rms(got, p32)
+        print(f"  float32: logits kernels vs plain max|diff|/max|logit| "
+              f"{rel32:.3e} (tol 1e-3); bf16 against the float32 plain "
+              f"logits: max|diff|/max|logit| kernel path "
+              f"{rel(got, p32):.3e}, plain path {rel(want, p32):.3e}; "
+              f"rms diff kernel path {rms_k:.4f}, plain path {floor:.4f} "
+              f"(tol: kernel <= 1.5 x plain)")
+        check(rel32 <= 1e-3, f"full-width {cfg.name} forward in float32: "
+                             f"kernel path and plain path disagree")
+        check(rms_k <= 1.5 * floor, f"full-width {cfg.name} forward in "
+                                    f"bf16: the kernel path is further from "
+                                    f"the float32 logits than the plain path")
+        stats.update(logit_rel_diff_fp32=rel32, bf16_rms_vs_fp32_kernel=rms_k,
+                     bf16_rms_vs_fp32_plain=floor)
+        del k32, p32
+    del got, want
+    with torch.no_grad(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.apply(params, batch)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+    per_kernel = {}
+    for fn, n, part in expect:
+        ev = [e for e in kern if part in e.name]
+        ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        check(len(ev) == n, f"profiled {cfg.name} forward ran {len(ev)} "
+                            f"{part} kernels, expected {n}")
+        per_kernel[fn.__name__] = {"ms": ms, "launches": len(ev)}
+        if n:
+            print(f"  profiled forward: {fn.__name__} {ms:.2f} ms over "
+                  f"{len(ev)} launches ({ms / busy:.3f} of device time)")
+    print(f"  profiled forward: device busy {busy:.2f} ms; largest "
+          f"kernels [{card_line}]:")
+    for name, (tot, n) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][0])[:6]:
+        print(f"    {tot / 1e3:8.2f} ms  x{n:<5d} {name[:70]}")
+    stats.update(device_busy_ms=busy, kernels=per_kernel)
+    return stats
+
+
+def decode_check(torch, model, params, gen, card_line):
+    """Four decode steps through the decode kernel and through the plain
+    attention, from one cache with random KV and state, in bf16 and in
+    float32 (weights and cache cast up), gated as ``forward_check`` gates
+    with ``fp32_gate``. Returns the differences."""
+    from repro_torch.serving import with_impls
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = model.cfg
+    plain = with_impls(model, attn_impl="torch")
+    cache = model.init_cache(4, 512)
+    for path, leaf in tree_leaves(cache):
+        if path != "pos":
+            leaf.copy_(0.5 * torch.randn(leaf.shape, generator=gen,
+                                         device="cuda"))
+    cache["pos"] = torch.tensor([200, 37, 510, 0], dtype=torch.int32,
+                                device="cuda")
+    toks = [torch.randint(1, cfg.vocab_size, (4, 1), generator=gen,
+                          device="cuda") for _ in range(4)]
+    params32 = tree_map(lambda t: t.float(), params)
+    logits = {}
+    for key, m, p, f32 in (("k16", model, params, False),
+                           ("p16", plain, params, False),
+                           ("k32", model, params32, True),
+                           ("p32", plain, params32, True)):
+        if f32:
+            m = with_impls(m, dtype="float32")
+        c = tree_map(lambda t: t.to(torch.float32 if f32 and t.is_floating_point()
+                                    else t.dtype, copy=True), cache)
+        outs = []
+        with torch.no_grad():
+            for tok in toks:
+                out, c = m.decode(p, c, {"tokens": tok})
+                outs.append(out.float())
+        logits[key] = torch.stack(outs)
+        check(torch.equal(c["pos"], cache["pos"] + len(toks)),
+              f"{cfg.name} decode: pos did not advance")
+    torch.cuda.synchronize()
+    out = {"bf16": rel(logits["k16"], logits["p16"]),
+           "fp32": rel(logits["k32"], logits["p32"]),
+           "bf16_rms_vs_fp32_kernel": rms(logits["k16"], logits["p32"]),
+           "bf16_rms_vs_fp32_plain": rms(logits["p16"], logits["p32"])}
+    print(f"  {cfg.name} decode logits, 4 steps, kernel vs plain attention: "
+          f"float32 max|diff|/max|logit| {out['fp32']:.3e} (tol 1e-3); bf16 "
+          f"{out['bf16']:.3e}; rms diff from the float32 plain logits: "
+          f"kernel path {out['bf16_rms_vs_fp32_kernel']:.4f}, plain path "
+          f"{out['bf16_rms_vs_fp32_plain']:.4f} (tol: kernel <= 1.5 x plain) "
+          f"[{card_line}]")
+    check(out["fp32"] <= 1e-3 and out["bf16_rms_vs_fp32_kernel"]
+          <= 1.5 * out["bf16_rms_vs_fp32_plain"],
+          f"{cfg.name} decode: kernel path and plain path disagree")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -272,7 +634,12 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6 import rwkv6_plain, rwkv6_scan
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.launch import serve
+    from repro_torch.models.transformer import num_shared_invocations
     from repro_torch.serving import with_impls
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -284,6 +651,10 @@ def main() -> int:
               "replaces": REPLACES}
     flash_record = {"name": "flash_attention", "route": "cuda",
                     "source": FLASH_SOURCE, "replaces": FLASH_REPLACES}
+    ssd_record = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+                  "replaces": SSD_REPLACES}
+    wkv_record = {"name": "rwkv6_scan", "route": "cuda", "source": WKV_SOURCE,
+                  "replaces": WKV_REPLACES}
 
     with phase("environment"):
         print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
@@ -296,10 +667,12 @@ def main() -> int:
     with phase("build"):
         t0 = time.monotonic()
         times = build_all(build, {"decode_attention": K.SOURCE,
-                                  "flash_attention": FK.SOURCE})
-        K.library()
-        FK.library()
-        print(f"  built both kernels with nvcc in {time.monotonic() - t0:.1f}"
+                                  "flash_attention": FK.SOURCE,
+                                  "ssd_scan": SK.SOURCE,
+                                  "rwkv6": WK.SOURCE})
+        for lib in (K, FK, SK, WK):
+            lib.library()
+        print(f"  built four kernels with nvcc in {time.monotonic() - t0:.1f}"
               f" s (in parallel: " + ", ".join(
                   f"{n} {t:.1f} s" for n, t in times.items()) +
               f") [{card_line}]")
@@ -351,6 +724,54 @@ def main() -> int:
         flash_record["max_abs_err"] = max_err
         release(torch)
 
+    with phase("ssd-vs-plain"):
+        max_err = 0.0
+        for name, shape in SSD_SHAPES.items():
+            for dtype in ("bfloat16", "float32"):
+                xdt, Bc, Cc, dA = ssd_inputs(torch, shape, dtype, gen)
+                t0 = time.monotonic()
+                want = ssd_scan_plain(xdt, Bc, Cc, dA)
+                torch.cuda.synchronize()
+                plain_s = time.monotonic() - t0
+                got = ssd_scan(xdt, Bc, Cc, dA)
+                torch.cuda.synchronize()
+                err, outside = worst(got, want, allowed(want, dtype))
+                max_err = max(max_err, err)
+                print(f"  {name:10s} {dtype:8s} {shape[:5]}: max_abs_err "
+                      f"{err:.3e} (tol {TOL_TEXT[dtype]}), {outside} "
+                      f"outside; max|y| {float(want.float().abs().max()):.1f}"
+                      f"; plain {plain_s:.2f} s")
+                check(outside == 0 and math.isfinite(err)
+                      and got.dtype == xdt.dtype,
+                      f"SSD kernel disagrees with plain on {name}/{dtype}")
+                del xdt, Bc, Cc, dA, want, got
+        ssd_record["max_abs_err"] = max_err
+        release(torch)
+
+    with phase("rwkv6-vs-plain"):
+        max_err = 0.0
+        for name, shape in WKV_SHAPES.items():
+            args_ = wkv_inputs(torch, shape, gen)
+            t0 = time.monotonic()
+            want_o, want_s = rwkv6_plain(*args_)
+            torch.cuda.synchronize()
+            plain_s = time.monotonic() - t0
+            got_o, got_s = rwkv6_scan(*args_)
+            torch.cuda.synchronize()
+            for what, got, want in (("o", got_o, want_o),
+                                    ("final state", got_s, want_s)):
+                err, outside = worst(got, want, allowed(want, "float32"))
+                max_err = max(max_err, err)
+                print(f"  {name:8s} float32 {shape[:4]} {what:11s}: "
+                      f"max_abs_err {err:.3e} (tol {TOL_TEXT['float32']}), "
+                      f"{outside} outside; max|ref| "
+                      f"{float(want.abs().max()):.1f}; plain {plain_s:.2f} s")
+                check(outside == 0 and math.isfinite(err),
+                      f"WKV kernel disagrees with plain on {name}/{what}")
+            del args_, want_o, want_s, got_o, got_s
+        wkv_record["max_abs_err"] = max_err
+        release(torch)
+
     with phase("decode-cell"):
         args = serve.parse_args(SERVE_ARGS)
         t0 = time.monotonic()
@@ -397,67 +818,11 @@ def main() -> int:
               "full-width decode cell: kernel path and plain path disagree")
 
     with phase("serve"):
-        decode_attention.launches = 0
-        base = serve.make_engine(args, model, params)
-        reqs = serve.make_requests(args, cfg.vocab_size)
-        step_ms, t0 = [], time.monotonic()
-        for r in reqs:
-            base.submit(r)
-        while base.has_work():
-            n0, s0 = base.tokens_decoded, time.monotonic()
-            base.step()
-            torch.cuda.synchronize()
-            if base.tokens_decoded > n0:
-                step_ms.append((time.monotonic() - s0) * 1e3)
-        wall = time.monotonic() - t0
-        summary = serve.summarize(args, base, reqs, None, wall)
-        expected = {r.rid: r.generated for r in reqs}
-        check(all(r.done for r in reqs), "undisturbed run left work")
-        check(decode_attention.launches == cfg.num_layers * base.decode_cells,
-              "the undisturbed run did not launch the kernel once per layer "
-              "per decode cell")
-        tps = base.tokens_decoded / wall
-        mean_step = sum(step_ms) / len(step_ms)
-        print(f"  undisturbed: {base.tokens_decoded} tokens in {wall:.2f} s "
-              f"= {tps:.1f} tokens/s, mean decode step {mean_step:.2f} ms "
-              f"over {len(step_ms)} steps, {base.decode_cells} decode cells "
-              f"[{card_line}]")
-        print("  summary " + json.dumps(summary))
-
-        first = serve.make_engine(args, model, params)
-        reqs = serve.make_requests(args, cfg.vocab_size)
-        for r in reqs:
-            first.submit(r)
-        while not all(len(r.generated) >= 4 for r in first.slots
-                      if r is not None) or first.n_active < args.max_batch:
-            first.step()
-        lost = first.revoke_slot(1)                  # fired: no warning
-        for _ in range(3):
-            first.step()
-        migrated = first.begin_drain(grace_tokens=2)  # warned
-        second = serve.make_engine(args, model, params)
-        for r in migrated:
-            check(second.submit(r), f"request {r.rid} refused on migration")
-        first.run_to_completion()
-        second.run_to_completion()
-        torch.cuda.synchronize()
-        cells = base.decode_cells + first.decode_cells + second.decode_cells
-        same = sum(r.generated == expected[r.rid] for r in reqs)
-        print(f"  revoke+drain run: slot 1 lost {lost.timing.tokens_lost} "
-              f"tokens, {len(migrated)} requests migrated, tokens_replayed "
-              f"{first.tokens_replayed}; tokens equal to the undisturbed "
-              f"run: {same}/{len(reqs)}")
-        print(f"  kernel launches {decode_attention.launches} = "
-              f"{cfg.num_layers} layers x {cells} decode cells")
-        check(same == len(reqs) and all(r.done for r in reqs),
-              "migrated requests diverged from the undisturbed run")
-        check(decode_attention.launches == cfg.num_layers * cells,
-              "the main path did not run the kernel once per layer per "
-              "decode cell")
+        serve_stats = serve_and_migrate(
+            torch, serve, args, model, params, card_line,
+            [(decode_attention, cfg.num_layers), (flash_attention, 0)])
+        mean_step = serve_stats["decode_step_ms_mean"]
         record["launches"] = decode_attention.launches
-        serve_stats = {"tokens_per_s": tps, "decode_step_ms_mean": mean_step,
-                       "decode_steps": len(step_ms),
-                       "decode_cells": base.decode_cells, "wall_s": wall}
 
     with phase("profile"):
         from torch.autograd import DeviceType
@@ -513,60 +878,20 @@ def main() -> int:
                   f"[{card_line}]")
 
     with phase("forward"):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         from repro_torch.data import make_batch
         B, S = FORWARD_BATCH
         batch = make_batch(cfg, B, S, seed=0)
-        plain_model = with_impls(model, attn_impl="torch")
-        with torch.no_grad():
-            want, _ = plain_model.apply(params, batch)
-            torch.cuda.synchronize()
-            flash_attention.launches = 0          # the path's run starts
-            t0 = time.monotonic()
-            got, aux = model.apply(params, batch)
-            torch.cuda.synchronize()
-            fwd_s = time.monotonic() - t0
-            flash_launches = flash_attention.launches   # and ends
-        check(flash_launches == cfg.num_layers,
-              f"{flash_launches} flash launches in one forward, expected "
-              f"one per layer ({cfg.num_layers})")
-        flash_record["launches"] = flash_launches
-        g32, w32 = got.float(), want.float()
-        rel = float((g32 - w32).abs().max() / w32.abs().max())
-        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        check(torch.isfinite(g32).all().item()
-              and tuple(got.shape) == (B, S, cfg.vocab_size)
-              and float(aux) == 0.0, "forward output malformed")
-        print(f"  {cfg.name} full width, B={B} S={S}: logits flash vs "
-              f"plain attention max|diff|/max|logit| {rel:.3e} (tol 0.05), "
-              f"argmax agreement {agree:.4f}; {flash_launches} flash "
-              f"launches; forward {fwd_s * 1e3:.1f} ms [{card_line}]")
-        check(rel <= 0.05, "full-width forward: flash path and plain path "
-                           "disagree")
-        del got, want, g32, w32
-        with torch.no_grad(), profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.apply(params, batch)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        flash_ev = [e for e in kern if "flash_fwd" in e.name]
-        flash_fwd_ms = sum(e.time_range.elapsed_us() for e in flash_ev) / 1e3
-        check(len(flash_ev) == cfg.num_layers,
-              f"profiled forward ran {len(flash_ev)} flash kernels")
-        print(f"  profiled forward: device busy {busy:.2f} ms, flash kernel "
-              f"{flash_fwd_ms:.2f} ms over {len(flash_ev)} launches "
-              f"({flash_fwd_ms / busy:.3f} of device time) [{card_line}]")
-        profile_stats["forward"] = {
-            "B": B, "S": S, "wall_ms": fwd_s * 1e3,
-            "device_busy_ms": busy, "flash_ms": flash_fwd_ms,
-            "flash_launches": len(flash_ev), "logit_rel_diff": rel,
-            "argmax_agreement": agree}
-        del batch, prof, kern, flash_ev
+        fwd = forward_check(
+            torch, model, with_impls(model, attn_impl="torch"), params,
+            batch, [(flash_attention, cfg.num_layers, "flash_fwd"),
+                    (decode_attention, 0, "decode_split_kernel")],
+            card_line)
+        flash_record["launches"] = fwd["kernels"]["flash_attention"][
+            "launches"]
+        profile_stats["forward"] = fwd
+        del batch
         # the serving weights go: training needs the card's memory
-        del params, model, plain_model, base, first, second, eng, cache
-        del other
+        del params, model, eng, cache, other
         release(torch)
 
     with phase("train"):
@@ -657,7 +982,8 @@ def main() -> int:
         parity = {}
         for arch in PARITY_ARCHS:
             pcfg = get_config(arch, reduced=True).replace(
-                dtype="float32", attn_impl="torch")
+                dtype="float32", attn_impl="torch", ssm_impl="torch",
+                rwkv_impl="torch")
             host = build_model(pcfg, "cpu")
             tree = tree_map(lambda t: t.numpy(), host.init(
                 host.generator(0), dtype=torch.float32))
@@ -684,6 +1010,68 @@ def main() -> int:
             check(len(logs["cuda"]) == 3 and worst_rel <= 1e-4,
                   f"{arch}: training on the card and on the CPU disagree")
             parity[arch] = worst_rel
+
+    recurrent = {}                # arch -> (model, params, stats)
+    for arch, ph in zip(RECURRENT_ARCHS, ("hybrid-forward", "rwkv-forward")):
+        with phase(ph):
+            rargs = serve.parse_args(SERVE_ARGS + ["--arch", arch])
+            t0 = time.monotonic()
+            rmodel, rparams = serve.build(rargs)
+            torch.cuda.synchronize()
+            rcfg = rmodel.cfg
+            n_bytes = sum(t.numel() * t.element_size()
+                          for _, t in tree_leaves(rparams))
+            print(f"  {rcfg.name} full width: {rcfg.num_layers} layers, "
+                  f"d_model {rcfg.d_model}, weights {n_bytes / 1e9:.2f} GB "
+                  f"{rcfg.dtype}, init {time.monotonic() - t0:.1f} s")
+            check((rcfg.attn_impl, rcfg.ssm_impl, rcfg.rwkv_impl)
+                  == ("cuda",) * 3, "not the kernel path")
+            if rcfg.family == "hybrid":
+                check(rcfg.num_layers == 38 and rcfg.d_model == 2048
+                      and rcfg.ssm_heads * rcfg.ssm_head_dim == 4096,
+                      "not zamba2-1.2b at full width")
+                n_shared = num_shared_invocations(rcfg)
+                expect = [(ssd_scan, rcfg.num_layers, "ssd_scan_kernel"),
+                          (flash_attention, n_shared, "flash_fwd"),
+                          (rwkv6_scan, 0, "wkv_kernel")]
+            else:
+                check(rcfg.num_layers == 32 and rcfg.d_model == 4096
+                      and rcfg.d_ff == 14336, "not rwkv6-7b at full width")
+                expect = [(rwkv6_scan, rcfg.num_layers, "wkv_kernel"),
+                          (ssd_scan, 0, "ssd_scan_kernel"),
+                          (flash_attention, 0, "flash_fwd")]
+            batch = make_batch(rcfg, *FORWARD_BATCH, seed=0)
+            plain = with_impls(rmodel, attn_impl="torch", ssm_impl="torch",
+                               rwkv_impl="torch")
+            stats = forward_check(torch, rmodel, plain, rparams, batch,
+                                  expect + [(decode_attention, 0,
+                                             "decode_split_kernel")],
+                                  card_line, fp32_gate=True)
+            rec = ssd_record if rcfg.family == "hybrid" else wkv_record
+            rec["launches"] = stats["kernels"][rec["name"]]["launches"]
+            recurrent[arch] = (rmodel, rparams, {"forward": stats})
+            del batch, plain
+            release(torch)
+
+    with phase("serve-recurrent"):
+        for arch, (rmodel, rparams, stats) in recurrent.items():
+            rargs = serve.parse_args(SERVE_ARGS + ["--arch", arch])
+            rcfg = rmodel.cfg
+            per_cell = (num_shared_invocations(rcfg)
+                        if rcfg.family == "hybrid" else 0)
+            # the kernels of the full-sequence path never run while
+            # serving: every token goes through the decode cell
+            stats["serve"] = serve_and_migrate(
+                torch, serve, rargs, rmodel, rparams, card_line,
+                [(decode_attention, per_cell), (ssd_scan, 0), (rwkv6_scan, 0),
+                 (flash_attention, 0)])
+            if rcfg.family != "hybrid":
+                continue
+            stats["decode_logit_rel_diff"] = decode_check(
+                torch, rmodel, rparams, gen, card_line)
+        recurrent_stats = {arch: st for arch, (_, _, st) in recurrent.items()}
+        del recurrent, rmodel, rparams
+        release(torch)
 
     with phase("timing"):
         timings = []
@@ -781,13 +1169,67 @@ def main() -> int:
                             bound_ms=fwd_t["bound_ms"],
                             bound_by=fwd_t["bound_by"],
                             library_ms=fwd_t["library_ms"])
+
+        # no single PyTorch call computes the SSD scan or the WKV
+        # recurrence: their library column is null
+        shape = SSD_SHAPES["forward"]
+        B, S, H, P, N, _ = shape
+        n = max(2, math.ceil(2 * L2_BYTES / (2 * 2 * B * S * H * P)))
+        ins = [ssd_inputs(torch, shape, "bfloat16", gen) for _ in range(n)]
+        ms = device_ms(torch, lambda i: ssd_scan(*ins[i]), n, calls=16,
+                       reps=3)
+        plain = device_ms(torch, lambda i: ssd_scan_plain(*ins[i]), n,
+                          calls=1, reps=2)
+        bms, by, flops, nbytes = ssd_bound_ms(shape, "bfloat16")
+        print(f"  ssd_scan forward: B={B} S={S} H={H} P={P} N={N} bf16: "
+              f"kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, no "
+              f"library call; bound {bms * 1e3:.1f} us ({by}, "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
+              f"[{card_line}]")
+        ssd_timing = {"shape": "forward", "B": B, "S": S, "H": H, "P": P,
+                      "N": N, "dtype": "bfloat16", "ms": ms,
+                      "plain_ms": plain, "library_ms": None,
+                      "bound_ms": bms, "bound_by": by, "flops": flops,
+                      "bytes": nbytes, "achieved_GBps": nbytes / ms / 1e6}
+        ssd_record.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                          library_ms=None)
+        del ins
+        release(torch)
+
+        shape = WKV_SHAPES["forward"]
+        B, S, H, D, _ = shape
+        n = max(2, math.ceil(2 * L2_BYTES / (5 * 4 * B * S * H * D)))
+        ins = [wkv_inputs(torch, shape, gen) for _ in range(n)]
+        ms = device_ms(torch, lambda i: rwkv6_scan(*ins[i]), n, calls=16,
+                       reps=3)
+        plain = device_ms(torch, lambda i: rwkv6_plain(*ins[i]), n,
+                          calls=1, reps=2)
+        bms, by, flops, nbytes = wkv_bound_ms(shape)
+        print(f"  rwkv6_scan forward: B={B} S={S} H={H} D={D} float32, "
+              f"nonzero s0: kernel {ms * 1e3:.1f} us, plain "
+              f"{plain * 1e3:.1f} us, no library call; bound "
+              f"{bms * 1e3:.1f} us ({by}, {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP) [{card_line}]")
+        wkv_timing = {"shape": "forward", "B": B, "S": S, "H": H, "D": D,
+                      "dtype": "float32", "ms": ms, "plain_ms": plain,
+                      "library_ms": None, "bound_ms": bms, "bound_by": by,
+                      "flops": flops, "bytes": nbytes,
+                      "achieved_GBps": nbytes / ms / 1e6}
+        wkv_record.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                          library_ms=None)
+        del ins
+        release(torch)
         print(json.dumps({"kernel_timings": timings,
                           "flash_timings": flash_timings,
+                          "ssd_timing": ssd_timing,
+                          "wkv_timing": wkv_timing,
                           "serve": serve_stats, "profile": profile_stats,
                           "train": train_stats, "train_parity": parity,
+                          "recurrent": recurrent_stats,
                           "card": card_line}))
 
-    print(json.dumps({"kernels": [record, flash_record]}))
+    print(json.dumps({"kernels": [record, flash_record, ssd_record,
+                                  wkv_record]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,21 @@
-"""Configuration for the PyTorch port: the dense decoder's fields and the
-training configuration.
+"""Configuration for the PyTorch port: the fields of the dense, hybrid
+(zamba2) and recurrent (rwkv6) families, and the training configuration.
 
-A copy of the part of ``repro.config`` that the dense serving and
+A copy of the part of ``repro.config`` that the ported serving and
 training paths read, with the same field names and defaults, so that a
 configuration means the same model in both packages. The port keeps its
 own copy because it never imports the JAX package.
 
-``attn_impl`` selects attention: ``"cuda"`` (the hand-written Hopper
-kernels, decode and flash; the default, since the port's entry points run
-on the card) or ``"torch"`` (the plain PyTorch paths, which run anywhere:
-the decode kernel's plain version and the q-chunked full attention).
-The flash kernel has no backward, as the reference's Pallas kernel has
-none, so a model that is differentiated is built with ``"torch"``.
+Three fields select implementations, each ``"cuda"`` (the hand-written
+Hopper kernels; the default, since the port's entry points run on the
+card) or ``"torch"`` (the plain PyTorch paths, which run anywhere):
+``attn_impl`` (decode and flash attention; ``"torch"`` is the decode
+kernel's plain version and the q-chunked full attention), ``ssm_impl``
+(the Mamba-2 SSD scan; ``"torch"`` is the reference's chunked form) and
+``rwkv_impl`` (the RWKV-6 WKV recurrence; ``"torch"`` is the sequential
+scan). None of the kernels has a backward, as none of the reference's
+Pallas kernels has one, so a model that is differentiated is built with
+all three set to ``"torch"``.
 """
 from __future__ import annotations
 
@@ -45,15 +49,32 @@ class ModelConfig:
     sliding_window: int = 0        # 0 = every layer global
     global_every: int = 0          # e.g. 6 -> layers 5,11,... are global
 
+    # --- SSM / Mamba2 (zamba2) ---------------------------------------------
+    ssm_state: int = 0             # N, state dimension per head
+    ssm_heads: int = 0             # Mamba2 value heads
+    ssm_head_dim: int = 0          # P, head channel dim
+    ssm_expand: int = 2            # d_inner = expand * d_model
+    ssm_chunk: int = 128           # SSD chunk length of the plain path
+    shared_attn_every: int = 0     # zamba2: shared attn block cadence
+
+    # --- RWKV6 ---------------------------------------------------------------
+    rwkv_head_dim: int = 64
+
     # --- numerics / implementation ------------------------------------------
     dtype: str = "bfloat16"
     attn_impl: str = "cuda"
+    ssm_impl: str = "cuda"
+    rwkv_impl: str = "cuda"
     # q-chunk size of the plain full-attention path (memory control)
     attn_chunk: int = 1024
 
     @property
     def kv_groups(self) -> int:
         return max(1, self.num_heads // max(1, self.num_kv_heads))
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def is_global_layer(self, layer_idx: int) -> bool:
         """gemma3-style local:global pattern."""

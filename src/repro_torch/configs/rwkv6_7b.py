@@ -1,0 +1,32 @@
+"""rwkv6-7b (Finch) — attention-free RNN with data-dependent decay.
+
+[arXiv:2404.05892; hf]  32L d_model=4096 (attn-free) d_ff=14336
+vocab=65536. Head dim 64 -> 64 heads; time-mix with data-dependent decay
+w_t, channel-mix with squared-ReLU.
+"""
+from repro_torch.config import ModelConfig, register
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        name="rwkv6-7b",
+        family="ssm",
+        num_layers=32,
+        d_model=4096,
+        num_heads=64,              # d_model / rwkv_head_dim
+        num_kv_heads=64,
+        head_dim=64,
+        d_ff=14336,
+        vocab_size=65536,
+        rwkv_head_dim=64,
+    )
+
+
+def reduced() -> ModelConfig:
+    return full().replace(
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+        head_dim=16, d_ff=128, vocab_size=512, rwkv_head_dim=16,
+    )
+
+
+register("rwkv6-7b", full, reduced)

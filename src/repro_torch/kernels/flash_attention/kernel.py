@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -42,16 +42,6 @@ def library() -> ctypes.CDLL:
         [P] * 4 + [I] * 7 + [LL] * 12 + [I, I, ctypes.c_float, P])
     lib.flash_attention_forward.restype = I
     return lib
-
-
-def refuse_grad(*tensors: torch.Tensor) -> None:
-    """Raise if autograd would need a gradient through the kernel."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "flash_attention has no backward: its inputs require a gradient. "
-            "The reference's Pallas kernel has no gradient either; "
-            "differentiate through attn_impl='torch', or call under "
-            "torch.no_grad()")
 
 
 def _check(q, k, v) -> None:
@@ -85,7 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D), the model's layout, any
     strides with a contiguous last axis. Returns (B, Sq, H, D) in q's
     dtype. ``window`` <= 0 means global."""
-    refuse_grad(q, k, v)
+    refuse_grad("flash_attention", "attn_impl", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      sm_scale=sm_scale)

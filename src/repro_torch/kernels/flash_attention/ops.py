@@ -11,8 +11,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (flash_attention,
-                                                        refuse_grad)
+from repro_torch.kernels import refuse_grad
+from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 
@@ -29,7 +29,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      sm_scale=sm_scale)
     if impl != "cuda":
         raise ValueError(f"unknown impl {impl!r}; expected 'torch' or 'cuda'")
-    refuse_grad(q, k, v)
+    refuse_grad("flash_attention", "attn_impl", q, k, v)
     if not q.is_cuda:
         raise ValueError(f"impl='cuda' runs the CUDA kernel and needs CUDA "
                          f"tensors, got {q.device}; use impl='torch' on the "

@@ -2,6 +2,8 @@
 
 Batched decode on the slot-based continuous-batching engine, on the card
 by default (``--device cpu`` runs the plain PyTorch path on the CPU).
+Serves the dense family (the default, starcoder2-3b), zamba2-1.2b
+(hybrid) and rwkv6-7b (recurrent).
 ``--requests N`` synthetic prompts are submitted up front (more requests
 than slots: admission and retirement in waves). Mirrors the single-engine,
 non-trace flags of ``repro.launch.serve``; ``--reduced`` is on by default
@@ -39,8 +41,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="serve the reduced config (default); --no-reduced "
                          "serves the model at full width")
     ap.add_argument("--device", default="cuda",
-                    help="'cuda' (default; the decode-attention CUDA "
-                         "kernel) or 'cpu' (its plain PyTorch version)")
+                    help="'cuda' (default; the CUDA kernels) or 'cpu' "
+                         "(their plain PyTorch versions)")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -62,10 +64,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def build(args: argparse.Namespace) -> Tuple[Model, dict]:
     """The model on ``args.device`` and its parameters, drawn from
-    ``args.seed``. Decode attention runs the CUDA kernel on the card and
-    the plain version on the CPU."""
+    ``args.seed``. The kernels (attention, SSD scan, WKV) run on the card
+    and their plain versions on the CPU."""
     impl = "torch" if torch.device(args.device).type == "cpu" else "cuda"
-    cfg = get_config(args.arch, reduced=args.reduced).replace(attn_impl=impl)
+    cfg = get_config(args.arch, reduced=args.reduced).replace(
+        attn_impl=impl, ssm_impl=impl, rwkv_impl=impl)
     model = build_model(cfg, args.device)
     return model, model.init(model.generator(args.seed))
 
@@ -102,6 +105,8 @@ def summarize(args: argparse.Namespace, engine: ServeEngine,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else dev.type),
         "attn_impl": engine.model.cfg.attn_impl,
+        "ssm_impl": engine.model.cfg.ssm_impl,
+        "rwkv_impl": engine.model.cfg.rwkv_impl,
         "requests": len(reqs), "completed": len(done),
         "rejected": engine.requests_rejected,
         "engine_steps": steps, "tokens_decoded": engine.tokens_decoded,

@@ -9,10 +9,13 @@ reference's (``repro.launch.train``), ``--reduced`` on by default and
 device, the attention implementation that trained, the per-step losses,
 gradient norms and wall times, and the peak device memory.
 
-The flash-attention kernel has no backward (the reference's Pallas
-kernel has none either), so the differentiated forward runs the plain
-q-chunked attention, ``attn_impl="torch"``, on every device; the summary
-says so.
+None of the port's kernels has a backward (the reference's Pallas
+kernels have none either), so the differentiated forward runs the plain
+paths, ``attn_impl``, ``ssm_impl`` and ``rwkv_impl`` all ``"torch"``
+(the q-chunked attention, the chunked SSD form, the sequential WKV
+scan), on every device; the summary says so. Full-width training of
+rwkv6-7b does not fit one card (about 120 GB of float32 masters and
+moments).
 
 Not ported yet: ``--elastic`` (ROADMAP.md Queue 1 item 2,
 ``core/elastic.py``), ``--gym`` (Queue 1 item 2, the gym's execute path),
@@ -94,9 +97,9 @@ def run(args: argparse.Namespace
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to PyTorch yet; "
                 f"see {where}")
-    # the flash kernel has no backward: train through the plain attention
+    # the kernels have no backward: train through the plain paths
     cfg = get_config(args.arch, reduced=args.reduced).replace(
-        attn_impl="torch")
+        attn_impl="torch", ssm_impl="torch", rwkv_impl="torch")
     model = build_model(cfg, args.device)
     dev = model.device
     tcfg = TrainConfig(
@@ -143,8 +146,9 @@ def run(args: argparse.Namespace
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else dev.type),
         "attn_impl": cfg.attn_impl,
-        "attn_impl_note": "the flash kernel has no backward; training "
-                          "differentiates the plain attention",
+        "ssm_impl": cfg.ssm_impl, "rwkv_impl": cfg.rwkv_impl,
+        "attn_impl_note": "the kernels have no backward; training "
+                          "differentiates the plain paths",
         "global_batch": args.global_batch, "seq_len": args.seq_len,
         "losses": [r["loss"] for r in per_step],
         "grad_norms": [r["grad_norm"] for r in per_step],

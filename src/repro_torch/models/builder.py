@@ -1,6 +1,6 @@
 """Model builder (counterpart of ``repro.models.builder``): a uniform
-callable surface over the dense stack (init, apply, decode), bound to one
-device.
+callable surface over the ported stacks (init, apply, decode), bound to
+one device.
 """
 from __future__ import annotations
 
@@ -75,5 +75,5 @@ def cache_batch_axes(model: Model, max_len: int = 8) -> Tree:
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     return Model(cfg=cfg, device=resolve_device(device))

@@ -30,11 +30,14 @@ def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
           scale: Optional[float] = None, init: str = "normal") -> torch.Tensor:
     """One parameter, initialised like ``repro.models.layers.param``:
     ``scale=None`` means normal x 1/sqrt(fan_in), with fan_in the first
-    axis of a matrix; ``init="zeros"`` for biases and gammas. The draw is
-    float32 from ``gen``, then cast to ``dtype``."""
+    axis of a matrix; ``init="zeros"`` for biases and gammas, ``"ones"``
+    for Mamba-2's skip gains. The draw is float32 from ``gen``, then cast
+    to ``dtype``."""
     shape = tuple(shape)
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
     if scale is None:
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
         scale = 1.0 / math.sqrt(max(1, fan_in))

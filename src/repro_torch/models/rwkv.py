@@ -1,0 +1,159 @@
+"""RWKV-6 (Finch): attention-free time-mix with data-dependent decay
+(counterpart of ``repro.models.rwkv``).
+
+Recurrence per head (state S in R^{Dk x Dv}, decay w_t per k-channel):
+
+    o_t = r_t @ (S_{t-1} + diag(u) k_t^T v_t)
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+
+The data-dependent decay ``w_t = exp(-exp(w0 + lora(x_t)))`` is kept
+exactly. Token-shift lerps for r/k/v/g/w use static mix vectors, as in
+the reference. Channel-mix uses squared-ReLU.
+
+A full sequence (S > 1) with ``cfg.rwkv_impl == "cuda"`` runs the
+hand-written WKV kernel (``repro_torch.kernels.rwkv6``); ``"torch"``, and
+every single-token decode step, run the sequential scan, as the
+reference's XLA path does. The ``mix_*`` vectors, ``w0``, ``u`` and the
+``ln_x`` gamma are stored in float32 always: the reference reads them in
+float32.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.rwkv6 import rwkv6_plain, rwkv6_scan
+from repro_torch.models import layers as L
+
+LORA_R = 64
+Tree = Dict[str, torch.Tensor]
+
+# The sequential WKV recurrence (B, S, H, Dh) -> (o, final state): the
+# kernel's plain version is exactly the reference's ``_wkv_scan``.
+_wkv_scan = rwkv6_plain
+
+
+def _dims(cfg: ModelConfig) -> Tuple[int, int]:
+    Dh = cfg.rwkv_head_dim
+    return cfg.d_model // Dh, Dh
+
+
+def init_rwkv_tmix(gen, cfg: ModelConfig, *, dtype, device) -> Tree:
+    d = cfg.d_model
+    H, Dh = _dims(cfg)
+    kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    p = {f"mix_{c}": L.param(gen, (d,), scale=0.5, **f32) for c in "rkvgw"}
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        p[name] = L.param(gen, (d, d), **kw)
+    p["w0"] = L.param(gen, (d,), init="zeros", **f32)
+    p["w_lora_a"] = L.param(gen, (d, LORA_R), scale=0.01, **kw)
+    p["w_lora_b"] = L.param(gen, (LORA_R, d), scale=0.01, **kw)
+    p["u"] = L.param(gen, (H, Dh), scale=0.5, **f32)
+    p["ln_x"] = L.param(gen, (d,), init="zeros", **f32)
+    return p
+
+
+def init_rwkv_cmix(gen, cfg: ModelConfig, *, dtype, device) -> Tree:
+    d, f = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "mix_k": L.param(gen, (d,), scale=0.5, **f32),
+        "mix_r": L.param(gen, (d,), scale=0.5, **f32),
+        "wk": L.param(gen, (d, f), **kw),
+        "wv": L.param(gen, (f, d), **kw),
+        "wr": L.param(gen, (d, d), **kw),
+    }
+
+
+def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Token shift: x_{t-1} with ``prev`` (B,1,D) as the t=0 predecessor."""
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _lerp(x: torch.Tensor, xs: torch.Tensor, mix: torch.Tensor
+          ) -> torch.Tensor:
+    m = torch.sigmoid(mix.to(torch.float32)).to(x.dtype)
+    return x + (xs - x) * m
+
+
+def rwkv_decay(p: Tree, xw: torch.Tensor) -> torch.Tensor:
+    """Data-dependent decay w_t in (0,1): exp(-exp(w0 + lora(x)))."""
+    lo = torch.tanh(xw @ p["w_lora_a"].to(xw.dtype)) \
+        @ p["w_lora_b"].to(xw.dtype)
+    logw = p["w0"].to(torch.float32) + lo.to(torch.float32)
+    return torch.exp(-torch.exp(torch.clamp(logw, -8.0, 4.0)))
+
+
+def apply_tmix(p: Tree, x: torch.Tensor, cfg: ModelConfig,
+               prev_tok: torch.Tensor, state: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Time-mix over a full sequence. ``state`` (B, H, Dh, Dh) float32, or
+    None for zeros. Returns (out, last_tok, new_state)."""
+    B, S, d = x.shape
+    H, Dh = _dims(cfg)
+    xs = _shift(x, prev_tok)
+    xr = _lerp(x, xs, p["mix_r"])
+    xk = _lerp(x, xs, p["mix_k"])
+    xv = _lerp(x, xs, p["mix_v"])
+    xg = _lerp(x, xs, p["mix_g"])
+    xw = _lerp(x, xs, p["mix_w"])
+
+    dt = x.dtype
+    f32 = torch.float32
+    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, Dh).to(f32)
+    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, Dh).to(f32)
+    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, Dh).to(f32)
+    g = F.silu(xg @ p["wg"].to(dt))
+    w = rwkv_decay(p, xw).reshape(B, S, H, Dh)                 # float32
+    u = p["u"].to(f32)
+
+    if cfg.rwkv_impl == "cuda" and S > 1:
+        o, state = rwkv6_scan(r, k, v, w, u, state)
+    elif cfg.rwkv_impl in ("cuda", "torch"):
+        o, state = _wkv_scan(r, k, v, w, u, state)
+    else:
+        raise ValueError(f"unknown rwkv_impl {cfg.rwkv_impl!r}")
+    o = o.reshape(B, S, d).to(dt)
+    o = L.rms_norm(o, p["ln_x"], cfg.norm_eps) * g
+    return o @ p["wo"].to(dt), x[:, -1:], state
+
+
+def apply_cmix(p: Tree, x: torch.Tensor, cfg: ModelConfig,
+               prev_tok: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    xs = _shift(x, prev_tok)
+    xk = _lerp(x, xs, p["mix_k"])
+    xr = _lerp(x, xs, p["mix_r"])
+    dt = x.dtype
+    kk = torch.square(torch.relu(xk @ p["wk"].to(dt)))
+    out = torch.sigmoid(xr @ p["wr"].to(dt)) * (kk @ p["wv"].to(dt))
+    return out, x[:, -1:]
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int, dtype, device) -> Tree:
+    H, Dh = _dims(cfg)
+    return {
+        "wkv": torch.zeros((batch, H, Dh, Dh), dtype=torch.float32,
+                           device=device),
+        "tok_t": torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
+                             device=device),
+        "tok_c": torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
+                             device=device),
+    }
+
+
+def decode_tmix(p: Tree, x: torch.Tensor, cfg: ModelConfig, st: Tree
+                ) -> Tuple[torch.Tensor, Tree]:
+    """x: (B,1,d). One-step time-mix against carried state."""
+    out, last, wkv = apply_tmix(p, x, cfg, st["tok_t"], st["wkv"])
+    return out, {**st, "tok_t": last, "wkv": wkv}
+
+
+def decode_cmix(p: Tree, x: torch.Tensor, cfg: ModelConfig, st: Tree
+                ) -> Tuple[torch.Tensor, Tree]:
+    out, last = apply_cmix(p, x, cfg, st["tok_c"])
+    return out, {**st, "tok_c": last}

@@ -1,5 +1,6 @@
 """Batched serving engine: phase-split continuous batching over slots
-(counterpart of ``repro.serving.engine`` with the dense cache).
+(counterpart of ``repro.serving.engine`` with the dense cache), for the
+dense, hybrid (zamba2) and recurrent (rwkv6) families.
 
 A fixed-capacity slot array whose occupancy is runtime data: requests
 join and retire without rebuilding anything.
@@ -168,7 +169,8 @@ class ServeEngine:
 
     def _reset_row(self, row: int) -> None:
         """Zero every cache leaf at this batch row (a new occupant must not
-        see the previous request's KV remnants). The batch axis comes from
+        see the previous request's KV remnants, and recurrent state, which
+        no ``pos`` masks, must start from zero). The batch axis comes from
         the cache layout metadata, never from shape matching."""
         tree_map(lambda ax, leaf: leaf.select(ax, row).zero_(),
                  self._batch_axes, self.cache)

@@ -12,9 +12,9 @@ Training holds float32 masters (``init_state``), as the reference does;
 the forward casts each weight to ``cfg.dtype`` where it is used. The step
 updates the masters and the optimizer state in place (see
 ``repro_torch.optim.optimizers``) and returns a ``TrainState`` holding
-the same tensors. It never switches the attention implementation: the
-flash kernel has no backward, so the caller builds the training model
-with ``attn_impl="torch"``.
+the same tensors. It never switches implementations: the kernels have
+no backward, so the caller builds the training model with
+``attn_impl``, ``ssm_impl`` and ``rwkv_impl`` set to ``"torch"``.
 
 Not ported: the SPMD controls (``param_shardings``, ``zero1_mask``) and
 ``grad_dtype="bfloat16"``, ROADMAP.md Queue 1 item 7.
@@ -191,11 +191,12 @@ def make_prefill_step(model: Model) -> Callable[..., Tree]:
     cache``, ingesting up to T prompt tokens per row.
 
     A loop over the same decode cell ``make_serve_step`` runs, so the
-    cache is token-for-token what the single-token path builds. Rows
-    advance only while the token index is below their ``n_valid``: the
-    per-row advance mask goes into the decode cell, which drops the cache
-    writes of frozen rows (decode rows and finished prefill rows) and
-    leaves their ``pos``. The reference instead selects old or new rows
+    cache is token-for-token what the single-token path builds, recurrent
+    state included. Rows advance only while the token index is below
+    their ``n_valid``: the per-row advance mask goes into the decode cell,
+    which drops the KV writes of frozen rows (decode rows and finished
+    prefill rows), keeps their recurrent state, conv and token-shift rows,
+    and leaves their ``pos``. The reference instead selects old or new rows
     of every cache leaf after the cell; the decode cell here writes the KV
     cache in place, so that select would need a copy of the whole cache
     per token.

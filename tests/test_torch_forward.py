@@ -122,6 +122,6 @@ def test_bf16_serving_weights_and_fp32_masters_agree():
 
 
 def test_apply_refuses_families_not_ported():
-    cfg = get_config("starcoder2-3b", reduced=True).replace(family="ssm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    cfg = get_config("starcoder2-3b", reduced=True).replace(family="moe")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         build_model(cfg, "cpu")

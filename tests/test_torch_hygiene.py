@@ -43,4 +43,7 @@ def test_no_kernel_is_built_at_import():
     the first launch on a CUDA tensor."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import kernel  # noqa: F401
-    assert "decode_attention" not in build._LOADED
+    from repro_torch.kernels.rwkv6 import kernel as _  # noqa: F401,F811
+    from repro_torch.kernels.ssd_scan import kernel as _  # noqa: F401,F811
+    for name in ("decode_attention", "ssd_scan", "rwkv6"):
+        assert name not in build._LOADED

@@ -154,3 +154,125 @@ def test_flash_attention_kernel_refuses_bad_inputs():
         flash_attention(q.float().requires_grad_(), k.float(), v.float())
     with torch.no_grad():
         flash_attention(q.float().requires_grad_(), k.float(), v.float())
+
+
+# --- SSD scan ---------------------------------------------------------------
+
+# B, S, H, P, N, dA low bound: chip_smoke.py's zamba2 forward shape first,
+# then edge cases
+SSD_CASES = [
+    (4, 2048, 64, 64, 64, -0.5),      # zamba2-1.2b forward
+    (2, 1000, 8, 64, 64, -0.5),       # ragged: not a multiple of 64
+    (2, 333, 4, 64, 64, -20.0),       # fast decays, ragged
+    (3, 37, 8, 16, 16, -0.5),         # the CPU tests' widths
+    (1, 1, 2, 32, 16, -0.5),          # one token
+]
+
+
+def _ssd_inputs(case, dtype, dev, seed=0):
+    """xdt, and B, C as column slices of one conv-output-like tensor, as
+    the model hands them over."""
+    B, S, H, P, N, lo = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xdt = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+    conv = torch.randn(B, S, H * P + 2 * N, generator=g, device=dev).to(dtype)
+    Bc, Cc = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    dA = lo + (-0.01 - lo) * torch.rand(B, S, H, generator=g, device=dev)
+    return xdt, Bc, Cc, dA
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(case, dtype):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    dev = _cuda()
+    xdt, Bc, Cc, dA = _ssd_inputs(case, dtype, dev)
+    want = ssd_scan_plain(xdt, Bc, Cc, dA)
+    before = ssd_scan.launches
+    got = ssd_scan(xdt, Bc, Cc, dA)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert got.dtype == dtype and got.shape == xdt.shape
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_refuses_bad_inputs():
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    dev = _cuda()
+    xdt, Bc, Cc, dA = _ssd_inputs(SSD_CASES[3], torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="dtypes"):
+        ssd_scan(xdt.half(), Bc.half(), Cc.half(), dA)
+    with pytest.raises(ValueError, match="dtypes"):
+        ssd_scan(xdt, Bc, Cc, dA.bfloat16())
+    with pytest.raises(ValueError, match="is on cpu"):
+        ssd_scan(xdt, Bc.cpu(), Cc, dA)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(xdt.transpose(2, 3).contiguous().transpose(2, 3), Bc, Cc,
+                 dA)
+    x = xdt.float().requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient either"):
+        ssd_scan(x, Bc.float(), Cc.float(), dA)
+    with torch.no_grad():
+        ssd_scan(x, Bc.float(), Cc.float(), dA)
+
+
+# --- RWKV-6 WKV ---------------------------------------------------------------
+
+# B, S, H, D, initial state: chip_smoke.py's rwkv6 forward shape first
+WKV_CASES = [
+    (4, 2048, 64, 64, True),          # rwkv6-7b forward, nonzero s0
+    (4, 2048, 64, 64, False),
+    (2, 1000, 8, 64, True),           # ragged: not a multiple of 16
+    (3, 37, 4, 16, True),             # the CPU tests' widths
+    (1, 1, 2, 32, False),             # one token
+]
+
+
+def _wkv_inputs(case, dev, seed=0):
+    """r, k, v as views of one fused projection output; decays drawn as
+    the reference test does, down to exp(-e^4) ~ 1.9e-24."""
+    B, S, H, D, with_s0 = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rkv = torch.randn(B, S, H, 3 * D, generator=g, device=dev)
+    w = torch.exp(-torch.exp(-8 + 12 * torch.rand(B, S, H, D, generator=g,
+                                                  device=dev)))
+    u = torch.randn(H, D, generator=g, device=dev)
+    s0 = torch.randn(B, H, D, D, generator=g, device=dev) if with_s0 \
+        else None
+    return rkv[..., :D], rkv[..., D:2 * D], rkv[..., 2 * D:], w, u, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_rwkv6_kernel_matches_plain(case):
+    from repro_torch.kernels.rwkv6 import rwkv6_plain, rwkv6_scan
+    dev = _cuda()
+    args = _wkv_inputs(case, dev)
+    want_o, want_s = rwkv6_plain(*args)
+    before = rwkv6_scan.launches
+    got_o, got_s = rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    assert got_o.shape == args[0].shape and got_s.shape == want_s.shape
+    _assert_close(got_o, want_o, torch.float32)
+    _assert_close(got_s, want_s, torch.float32)
+
+
+@pytest.mark.gpu
+def test_rwkv6_kernel_refuses_bad_inputs():
+    from repro_torch.kernels.rwkv6 import rwkv6_scan
+    dev = _cuda()
+    r, k, v, w, u, s0 = _wkv_inputs(WKV_CASES[3], dev)
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan(r.bfloat16(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="is on cpu"):
+        rwkv6_scan(r, k, v, w, u.cpu(), s0)
+    with pytest.raises(ValueError, match="head dim"):
+        rwkv6_scan(*(torch.cat([t] * 5, -1) for t in (r, k, v, w)),
+                   torch.cat([u] * 5, -1))
+    with pytest.raises(RuntimeError, match="no gradient either"):
+        rwkv6_scan(r, k, v, w, u.clone().requires_grad_(), s0)
+    with torch.no_grad():
+        rwkv6_scan(r, k, v, w, u.clone().requires_grad_(), s0)

@@ -29,7 +29,11 @@ from repro_torch.models.builder import build_model, cache_batch_axes  # noqa: E4
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-ARCHS = ("starcoder2-3b", "qwen2.5-14b", "granite-20b", "gemma3-27b")
+ARCHS = ("starcoder2-3b", "qwen2.5-14b", "granite-20b", "gemma3-27b",
+         "zamba2-1.2b", "rwkv6-7b")
+# implementation selectors: the port's are "cuda" | "torch", the
+# reference's "xla" | "pallas"
+IMPLS = ("attn_impl", "ssm_impl", "rwkv_impl")
 RNG = np.random.default_rng(0)
 
 
@@ -130,9 +134,10 @@ def test_configs_match_the_reference(arch, reduced):
     """Every field the port keeps means the same as in repro.config."""
     cfg, ref = get_config(arch, reduced), jax_config(arch, reduced)
     for f in dataclasses.fields(ModelConfig):
-        if f.name != "attn_impl":
+        if f.name not in IMPLS:
             assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
     assert cfg.kv_groups == ref.kv_groups
+    assert cfg.ssm_d_inner == ref.ssm_d_inner
     assert [cfg.is_global_layer(i) for i in range(cfg.num_layers)] == \
         [ref.is_global_layer(i) for i in range(ref.num_layers)]
     assert set(ARCHS) == set(list_archs())
