@@ -18,11 +18,16 @@ phases that each print their name and ``ok``:
    one nvcc per source, started together, and print their ptxas lines;
 3. kernel-vs-plain: the decode kernel against its plain PyTorch version
    on the serve shape, a long cache, a window, one KV head, ragged
-   lengths (0 and past the cache) and zamba2's shared block (H = KV =
-   32, D = 64), in bf16 and fp32;
+   lengths (0 and past the cache), zamba2's shared block (H = KV = 32,
+   D = 64) and the tensor-core path's tile edges (S = 65, G = 48 with a
+   window), in bf16 and fp32, with the split plan, one split and three;
 4. flash-vs-plain: the flash kernel against its plain version on the
    starcoder2 forward shape, a gemma3 local layer, MQA, a ragged length,
-   non-causal attention, D=64 and zamba2's shared block, in bf16 and fp32;
+   non-causal attention, D=64, zamba2's shared block and the wgmma
+   kernel's tile edges (S = 127, 129, a window that cuts a tile, and
+   Sq = 129 against Sk = 127 at D = 64), in bf16 and fp32; and, at
+   D = 64, where P meets V in fp16, V far beyond either end of fp16's
+   range;
 5. ssd-vs-plain: the SSD kernel against its plain version (the per-token
    recurrence) on zamba2's forward shape, a ragged S and fast decays,
    with B and C read as column slices, in bf16 and fp32;
@@ -67,7 +72,11 @@ phases that each print their name and ``ok``:
 16. timing: device time of each kernel, its plain version and, where
     one PyTorch call computes the same function,
     ``scaled_dot_product_attention`` (the library yardstick, which the
-    port never calls) beside the kernel's bound.
+    port never calls) beside the kernel's bound and the share of it
+    reached: decode at the serve shape, a long cache and zamba2's decode
+    cell (SDPA with the length mask and, since the lengths are full,
+    without one); flash at the starcoder2 forward, a gemma3 local layer
+    and zamba2's shared block.
 
 Any failure raises and exits non-zero. The last lines are the kernel
 records (JSON), the card's name and power limit, and
@@ -111,6 +120,11 @@ SHAPES = {
     "kv1": (4, 24, 1, 512, 128, [512, 257, 33, 1], 0),
     "ragged": (4, 24, 2, 512, 128, [0, 1, 333, 700], 0),
     "zamba2": (4, 32, 32, 512, 64, [512, 300, 17, 0], 0),  # shared block
+    "zamba2_decode": (4, 32, 32, 512, 64, None, 0),  # its decode cell
+    # the tensor-core path's tile edges (64 keys): S = 64 + 1 with a
+    # length of 64 - 1, and G = 48 with a window that cuts tiles
+    "edge65": (2, 24, 2, 65, 128, [65, 63], 0),
+    "g48": (2, 48, 1, 600, 128, [600, 450], 100),
 }
 # name: (B, Sq, Sk, H, KV, D, causal, window)
 FLASH_SHAPES = {
@@ -121,6 +135,11 @@ FLASH_SHAPES = {
     "noncausal": (2, 1000, 1000, 24, 2, 128, False, 0),
     "d64": (2, 1024, 1024, 16, 4, 64, True, 256),
     "zamba2": (4, 2048, 2048, 32, 32, 64, True, 0),    # shared block
+    # the wgmma kernel's tile edges (128 queries x 128 keys)
+    "edge127": (2, 127, 127, 8, 2, 128, True, 0),
+    "edge129": (2, 129, 129, 8, 2, 128, False, 0),
+    "window_cut": (1, 600, 600, 8, 2, 128, True, 200),
+    "edge_d64": (2, 129, 127, 8, 2, 64, False, 0),    # fp16 P at D = 64
 }
 # name: (B, S, H, P, N, lowest dA); dA is uniform in [lowest, -0.01]
 SSD_SHAPES = {
@@ -691,7 +710,8 @@ def main() -> int:
                 q, k, v, lens, win = attention_inputs(torch, shape, dtype,
                                                       gen)
                 want = decode_attention_plain(q, k, v, lens, window=win)
-                for splits in (K.split_plan(B, KV, H, S)[0], 1):
+                # the plan, one split (no merge launch), and three
+                for splits in (K.split_plan(B, KV, H, S)[0], 1, 3):
                     got = decode_attention(q, k, v, lens, window=win,
                                            num_splits=splits)
                     torch.cuda.synchronize()
@@ -721,6 +741,26 @@ def main() -> int:
                 check(outside == 0 and math.isfinite(err),
                       f"flash kernel disagrees with plain on {name}/{dtype}")
                 del q, k, v, want, got
+        # at D = 64 P meets V in fp16, V scaled by a power of two into
+        # fp16's range: V far beyond either end of it (normal in bf16)
+        # gives the plain answer too. Both outputs are divided by v_scale
+        # first, so that the bound's mean square stays inside float32.
+        shape = FLASH_SHAPES["edge_d64"]
+        q, k, v = flash_inputs(torch, shape, "bfloat16", gen)
+        for v_scale in (1e6, 1e-15, 1e-30, 3e37):
+            vs = (v.float() * v_scale).bfloat16()
+            want = flash_attention_plain(q, k, vs, causal=shape[6])
+            got = flash_attention(q, k, vs, causal=shape[6])
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got.float()).all())
+            got, want = got.double() / v_scale, want.double() / v_scale
+            err, outside = worst(got, want, allowed(want, "bfloat16"))
+            print(f"  edge_d64 bfloat16, V x {v_scale:.0e}: max_abs_err "
+                  f"{err:.3e} of V's scale (tol {TOL_TEXT['bfloat16']}), "
+                  f"{outside} outside")
+            check(finite and outside == 0 and math.isfinite(err),
+                  f"flash kernel fails at D = 64 with V x {v_scale:.0e}")
+        del q, k, v, vs, want, got
         flash_record["max_abs_err"] = max_err
         release(torch)
 
@@ -849,14 +889,20 @@ def main() -> int:
             tot, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        # each wrapper call is two device launches: split pass and merge
+        # each wrapper call is one device launch of the split pass, and
+        # one of the merge when the plan has more than one split
+        splits = K.split_plan(args.max_batch, cfg.num_kv_heads,
+                              cfg.num_heads, args.max_len)[0]
         attn = {}                           # part -> (ms, launches) per step
         for part in ("decode_split_kernel", "decode_merge_kernel"):
             hits = [tn for nm, tn in by_name.items() if part in nm]
             attn[part] = (sum(t for t, _ in hits) / 1e3 / n_steps,
                           sum(n for _, n in hits) // n_steps)
-        check(all(n == cfg.num_layers for _, n in attn.values()),
-              f"decode attention device launches per step {attn}")
+        check(attn["decode_split_kernel"][1] == cfg.num_layers
+              and attn["decode_merge_kernel"][1]
+              == (cfg.num_layers if splits > 1 else 0),
+              f"decode attention device launches per step {attn} "
+              f"({splits} splits)")
         # the profiler slows the host loop, so the idle share is taken
         # against the unprofiled mean decode step of the serve phase
         idle = 1 - busy / mean_step
@@ -1074,8 +1120,10 @@ def main() -> int:
         release(torch)
 
     with phase("timing"):
+        # decode: the serve cell's shape, a long cache, zamba2's decode
+        # cell (H = KV = 32, D = 64), all at full lengths
         timings = []
-        for name in ("serve", "long"):
+        for name in ("serve", "long", "zamba2_decode"):
             shape = SHAPES[name]
             B, H, KV, S, D, _, win = shape
             per_copy = 2 * B * S * KV * D * 2
@@ -1086,41 +1134,56 @@ def main() -> int:
                       < lens[:, None])[:, None, None, :]
                      for _, _, _, lens, _ in ins]
             q, k, v, lens, _ = ins[0]
-            sdpa = F.scaled_dot_product_attention(
-                q[:, :, None], k, v, attn_mask=masks[0], enable_gqa=True)
-            # a sanity check that the yardstick computes the same function
-            # (its bf16 probabilities round more than the kernel's)
+            # a sanity check that both yardsticks compute the same function
+            # (their bf16 probabilities round more than the kernel's)
             want = decode_attention_plain(q, k, v, lens)
-            err, outside = worst(sdpa[:, :, 0], want,
-                                 2e-2 * (1 + want.float().abs()))
-            check(outside == 0, "SDPA yardstick computes another function")
+            for mask in (masks[0], None):
+                sdpa = F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+                err, outside = worst(sdpa[:, :, 0], want,
+                                     2e-2 * (1 + want.float().abs()))
+                check(outside == 0,
+                      "SDPA yardstick computes another function")
             ms = device_ms(torch, lambda i: decode_attention(
                 *ins[i][:4], window=win), n)
             plain = device_ms(torch, lambda i: decode_attention_plain(
                 *ins[i][:4], window=win), n)
-            lib = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+            masked = device_ms(torch, lambda i: F.scaled_dot_product_attention(
                 ins[i][0][:, :, None], ins[i][1], ins[i][2],
                 attn_mask=masks[i], enable_gqa=True), n)
+            # the lengths are full, so SDPA without the mask computes the
+            # same function here: the library yardstick is that call
+            lib = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+                ins[i][0][:, :, None], ins[i][1], ins[i][2],
+                enable_gqa=True), n)
             bms, by, nbytes = bound_ms(shape, "bfloat16", lens.tolist())
             ns = K.split_plan(B, KV, H, S)[0]
             print(f"  {name}: B={B} H={H} KV={KV} S={S} D={D} bf16, full "
                   f"lengths: kernel {ms * 1e3:.2f} us, plain "
-                  f"{plain * 1e3:.2f} us, sdpa {lib * 1e3:.2f} us; bound "
-                  f"{bms * 1e3:.2f} us ({by}, {nbytes / 1e6:.1f} MB), "
-                  f"{ns} splits, {n} input copies [{card_line}]")
+                  f"{plain * 1e3:.2f} us, sdpa {lib * 1e3:.2f} us (with the "
+                  f"length mask {masked * 1e3:.2f} us); bound "
+                  f"{bms * 1e3:.2f} us ({by}, {nbytes / 1e6:.1f} MB); "
+                  f"kernel at {nbytes / ms / 1e9:.3f} TB/s, "
+                  f"{bms / ms:.3f} of the bound; {ns} splits, {n} input "
+                  f"copies [{card_line}]")
             timings.append({"shape": name, "B": B, "H": H, "KV": KV, "S": S,
                             "D": D, "dtype": "bfloat16", "num_splits": ns,
                             "ms": ms, "plain_ms": plain, "library_ms": lib,
+                            "library_masked_ms": masked,
                             "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-                            "achieved_GBps": nbytes / ms / 1e6})
+                            "achieved_GBps": nbytes / ms / 1e6,
+                            "bound_share": bms / ms})
+            del ins, masks
         serve_t = timings[0]
         record.update(ms=serve_t["ms"], plain_ms=serve_t["plain_ms"],
                       bound_ms=serve_t["bound_ms"],
                       bound_by=serve_t["bound_by"],
                       library_ms=serve_t["library_ms"])
 
+        # flash: the starcoder2 forward, a gemma3 local layer, zamba2's
+        # shared block
         flash_timings = []
-        for name in ("forward", "gemma3_window"):
+        for name in ("forward", "gemma3_window", "zamba2"):
             shape = FLASH_SHAPES[name]
             B, Sq, Sk, H, KV, D, causal, win = shape
             per_copy = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
@@ -1144,6 +1207,7 @@ def main() -> int:
                                  2e-2 * (1 + want.float().abs()))
             check(outside == 0, "SDPA yardstick computes another function")
             del want
+
             ms = device_ms(torch, lambda i: flash_attention(
                 *ins[i], causal=causal, window=win), n, calls=16, reps=3)
             plain = device_ms(torch, lambda i: flash_attention_plain(
@@ -1152,16 +1216,17 @@ def main() -> int:
             bms, by, flops, nbytes = flash_bound_ms(shape, "bfloat16")
             print(f"  flash {name}: B={B} S={Sq} H={H} KV={KV} D={D} "
                   f"window={win} bf16: kernel {ms * 1e3:.1f} us, plain "
-                  f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us; bound "
-                  f"{bms * 1e3:.1f} us ({by}, {flops / 1e9:.1f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB), kernel at "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s [{card_line}]")
+                  f"{plain * 1e3:.1f} us, sdpa "
+                  f"{lib * 1e3:.1f} us; bound {bms * 1e3:.1f} us ({by}, "
+                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); kernel "
+                  f"at {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of the "
+                  f"bound [{card_line}]")
             flash_timings.append({
                 "shape": name, "B": B, "S": Sq, "H": H, "KV": KV, "D": D,
                 "window": win, "dtype": "bfloat16", "ms": ms,
                 "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
                 "bound_by": by, "flops": flops, "bytes": nbytes,
-                "achieved_TFLOPs": flops / ms / 1e9})
+                "achieved_TFLOPs": flops / ms / 1e9, "bound_share": bms / ms})
             del ins
             release(torch)
         fwd_t = flash_timings[0]

@@ -7,33 +7,46 @@
 // (B, S, KV, D) is read in place with no transpose; lengths (B,) int32; a
 // runtime window (<= 0: full history). Position j of row b is valid iff
 // j < min(len_b, S) and, when window > 0, j >= len_b - window. Scale
-// D^-0.5, fp32 online softmax, output in q's dtype, 0 for a row with no
+// D^-0.5, fp32 softmax state, output in q's dtype, 0 for a row with no
 // valid key. Under GQA, q-head h reads kv-head h / (H / KV); heads are
 // never broadcast in memory.
 //
 // Bound: decode is memory-bound. The work is ~4 flops per KV element
 // against 2 bytes (bf16) of it, far below the H100's ~295 flops/byte
 // ridge, so the floor is the valid KV bytes,
-// B * KV * min(len, S) * D * 2 (k and v) * sizeof(T), at 3.35 TB/s.
+// B * KV * min(len, S) * D * 2 (k and v) * sizeof(T), at 3.35 TB/s. What
+// reaches it is bytes in flight: ~25 KB per SM to cover HBM's latency.
 //
 // Design: the TPU kernel streams KV blocks through one program per
 // (row, kv-head), B * KV programs in order; on a card with 132 SMs that
-// leaves most SMs idle (8 blocks at B=4, KV=2). This kernel splits the
-// key axis instead (split-K, "flash-decoding"):
-//  1. decode_split_kernel: one block per (split, row, kv-head, head
-//     chunk). It loads its query heads once (G of them, up to 16 per
-//     chunk) into registers and streams its share of the valid keys. Each
-//     key is read by LPK = D/4 lanes, 4 elements (8 or 16 bytes) each, and
-//     scored against every head with a shuffle reduction, so one read of a
-//     key serves the whole GQA group. Every lane group keeps its own
-//     online-softmax state (m, l, acc); the groups of a warp merge by
-//     shuffles, the warps of the block through shared memory, and the
-//     block writes fp32 partials (m, l, acc) to scratch the wrapper
-//     allocates. Splits wholly past the length or below the window run no
-//     key loop and write an empty partial.
-//  2. decode_merge_kernel: one block per (row, q-head) rescales and sums
-//     the partials and writes the output.
-// No tensor cores, TMA or wgmma yet: a right and simple kernel first.
+// leaves most SMs idle (8 blocks at B=4, KV=2). Here the key axis is split
+// (split-K, "flash-decoding"): one block per (split, row, kv-head, chunk
+// of up to 16 q-heads), and a merge pass when there is more than one
+// split. Dispatch is by dtype and head dim:
+//  - bfloat16, D = 64 and 128: decode_split_kernel_tc, a tensor-core tile
+//    pipeline. Four warps stream 64-key tiles of K and V through a ring of
+//    cp.async stages in shared memory (three at D = 128, four at D = 64),
+//    one __syncthreads a tile, so up to two tiles (64 KB at D = 128) are
+//    in flight behind the one being scored. The chunk's q-heads are the
+//    16 rows of mma.sync m16n8k16 (the GQA group padded to 16: 12 for
+//    starcoder2, 1 for zamba2; 24 and 48 in chunks of 16), so one read
+//    of a key serves the whole group. Each warp scores its own 16 keys of
+//    the tile (K fragments by ldmatrix), runs the online softmax once per
+//    tile per head over them, and adds P V on the tensor cores (V by
+//    ldmatrix.trans; P as two bf16 terms, hi + lo, which costs nothing
+//    measurable in a bytes-bound kernel and keeps a float32 P's accuracy).
+//    The four warps' states merge through shared memory at the end. The
+//    wrapper's split plan gives about one block per SM; with one split
+//    the block writes the output itself and no merge runs, otherwise it
+//    writes a float32 partial (m, l, acc).
+//    ptxas (CUDA 12.9, sm_90a): 221 registers at D = 128, 124 at D = 64,
+//    no spills; dynamic shared memory 104,448 and 73,728 bytes.
+//  - float32 (any D) and bfloat16 D = 16 (the CPU tests' widths):
+//    decode_split_kernel on the CUDA cores, each key read by D/4 lanes
+//    and scored against every head by a shuffle reduction, per-key online
+//    softmax.
+//  decode_merge_kernel: one block per (row, q-head) rescales and sums the
+// partials and writes the output.
 //
 // C interface for ctypes; launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() after the launches.
@@ -239,11 +252,14 @@ __global__ void decode_merge_kernel(const Params p) {
   const float* pm = p.part_m + bh * p.num_splits;
   const float* pl = p.part_l + bh * p.num_splits;
   const float* pa = p.part_acc + bh * p.num_splits * p.D;
+  // unrolled so that the loads of several splits wait out one latency
   float mx = -INFINITY;
+#pragma unroll 8
   for (int s = 0; s < p.num_splits; ++s) mx = fmaxf(mx, pm[s]);
   T* out = static_cast<T*>(p.out) + bh * p.D;
   for (int d = threadIdx.x; d < p.D; d += blockDim.x) {
     float lsum = 0.f, asum = 0.f;
+#pragma unroll 8
     for (int s = 0; s < p.num_splits; ++s) {
       const float wt = rescale(pm[s], mx);
       lsum += pl[s] * wt;
@@ -285,10 +301,324 @@ cudaError_t dispatch_dim(int gm, const Params& p, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16, D = 64 and 128: tensor-core tile pipeline
+// ---------------------------------------------------------------------------
+
+constexpr int kTK = 64;          // keys per tile: 16 per warp
+constexpr int kRows = 16;        // q-heads per block: mma.sync's M
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct TcCfg {
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr int kST = D + 8;  // row stride: ldmatrix conflict-free
+  static constexpr int kSmem = kStages * 2 * kTK * kST * 2;
+  static_assert(kWarps * kRows * D * 4 + 2 * kWarps * kRows * 4 <= kSmem,
+                "the warps' states fit in the ring for the final merge");
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// c += a (16x16, row) @ b (16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. ``trans`` transposes each matrix.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// One 16-byte chunk global -> shared, asynchronously; ``bytes`` 0 reads
+// nothing and zero-fills the chunk.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(a), "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel_tc(const Params p) {
+  using C = TcCfg<D>;
+  constexpr int S = C::kStages;
+  constexpr int ST = C::kST;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
+
+  const int split = blockIdx.x;
+  const int chunk = blockIdx.y % p.HC;
+  const int kvh = (blockIdx.y / p.HC) % p.KV;
+  const int b = blockIdx.y / (p.HC * p.KV);
+  const int h0 = kvh * p.G + chunk * kRows;  // first q-head of this block
+  const int gn = min(kRows, p.G - chunk * kRows);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // fragment row group: heads h0 + g, h0 + g + 8
+  const int t = lane % 4;
+  const int lr = lane % 8;  // ldmatrix: matrix lane / 8, row lane % 8
+  const int lm = lane / 8;
+
+  const int len = p.lengths[b];
+  const int hi = min(len, p.S);
+  const int lo = p.window > 0 ? max(len - p.window, 0) : 0;
+  const int start = max(lo, split * p.split_size);
+  const int end = min(hi, (split + 1) * p.split_size);
+  const int n = end > start ? (end - start + kTK - 1) / kTK : 0;
+
+  // Q as the A operand, loaded once: qf[ks] covers dims ks*16..+15 of
+  // heads g and g + 8 (zero rows past the group).
+  const __nv_bfloat16* qb =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb;
+  const __nv_bfloat16* q0 = qb + (h0 + g) * p.q_sh;
+  const __nv_bfloat16* q1 = qb + (h0 + g + 8) * p.q_sh;
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = ks * 16 + t * 2;
+    qf[ks][0] = g < gn ? ld32(q0 + c) : 0u;
+    qf[ks][1] = g + 8 < gn ? ld32(q1 + c) : 0u;
+    qf[ks][2] = g < gn ? ld32(q0 + c + 8) : 0u;
+    qf[ks][3] = g + 8 < gn ? ld32(q1 + c + 8) : 0u;
+  }
+
+  const __nv_bfloat16* kb =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* vb =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  // Tile i (keys start + 64 i ..) into ring slot i % S, one cp.async
+  // group; keys at or past ``end`` are zero-filled and never read.
+  auto stage = [&](int i) {
+    __nv_bfloat16* sK = ring + (i % S) * 2 * kTK * ST;
+    __nv_bfloat16* sV = sK + kTK * ST;
+    constexpr int CPR = D / 8;  // 16-byte chunks per row
+    static_assert(kTK * CPR % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+    for (int it = 0; it < kTK * CPR / kThreads; ++it) {
+      const int idx = it * kThreads + threadIdx.x;
+      const int row = idx / CPR;
+      const int c8 = (idx % CPR) * 8;
+      const int j = start + i * kTK + row;
+      const bool in = j < end;
+      const long long src = in ? j : start;
+      cp_async16(&sK[row * ST + c8], kb + src * p.k_ss + c8, in ? 16 : 0);
+      cp_async16(&sV[row * ST + c8], vb + src * p.v_ss + c8, in ? 16 : 0);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < n) stage(i);
+    cp_async_commit();
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 domain)
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+  const float sl2 = p.scale * kLog2e;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<S - 2>();  // tile i has landed (this thread's copies)
+    __syncthreads();         // ... everyone's; and slot (i - 1) % S is free
+    if (i + S - 1 < n) stage(i + S - 1);
+    cp_async_commit();
+
+    const __nv_bfloat16* sK = ring + (i % S) * 2 * kTK * ST + warp * 16 * ST;
+    const __nv_bfloat16* sV = sK + kTK * ST;
+    // Scores of the 16 heads against this warp's 16 keys: two 8-key
+    // tiles; one ldmatrix.x4 gives two 16-dim steps of one.
+    float sc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ks += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, &sK[(nt * 8 + lr) * ST + ks * 16 + lm * 8]);
+        mma_bf16(sc[nt], qf[ks], kf[0], kf[1]);
+        mma_bf16(sc[nt], qf[ks + 1], kf[2], kf[3]);
+      }
+    }
+    const int jw = start + i * kTK + warp * 16;
+    if (jw + 16 > end) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (jw + nt * 8 + t * 2 + (e & 1) >= end) sc[nt][e] = -INFINITY;
+    }
+    float mx0 = fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1]));
+    float mx1 = fmaxf(fmaxf(sc[0][2], sc[0][3]), fmaxf(sc[1][2], sc[1][3]));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0 * sl2);
+    const float mn1 = fmaxf(m1, mx1 * sl2);
+    // A row with nothing valid yet keeps m = -inf and weighs 0.
+    const float a0 = mn0 == -INFINITY ? 1.f : exp2f(m0 - mn0);
+    const float a1 = mn1 == -INFINITY ? 1.f : exp2f(m1 - mn1);
+    const float nm0 = mn0 == -INFINITY ? 0.f : -mn0;
+    const float nm1 = mn1 == -INFINITY ? 0.f : -mn1;
+    float pr[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pr[nt][e] = exp2f(fmaf(sc[nt][e], sl2, e < 2 ? nm0 : nm1));
+    l0 = l0 * a0 + pr[0][0] + pr[0][1] + pr[1][0] + pr[1][1];
+    l1 = l1 * a1 + pr[0][2] + pr[0][3] + pr[1][2] + pr[1][3];
+    m0 = mn0;
+    m1 = mn1;
+    // P as the A operand of one 16-key step, split into two bf16 terms.
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = pr[r / 2][(r % 2) * 2], y = pr[r / 2][(r % 2) * 2 + 1];
+      const __nv_bfloat162 hb = __floats2bfloat162_rn(x, y);
+      ph[r] = *reinterpret_cast<const uint32_t*>(&hb);
+      pl[r] = pack_bf16(x - __bfloat162float(hb.x), y - __bfloat162float(hb.y));
+    }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o[dt][0] *= a0;
+      o[dt][1] *= a0;
+      o[dt][2] *= a1;
+      o[dt][3] *= a1;
+    }
+    // O += P V: one ldmatrix.x4.trans gives the B fragments of two 8-dim
+    // tiles (keys {0, 8} + row, dims dt*8 + {0, 8}), read transposed.
+#pragma unroll
+    for (int dt = 0; dt < D / 8; dt += 2) {
+      uint32_t vf[4];
+      ldsm_x4_trans(vf, &sV[((lm % 2) * 8 + lr) * ST + dt * 8 + (lm / 2) * 8]);
+      mma_bf16(o[dt], ph, vf[0], vf[1]);
+      mma_bf16(o[dt], pl, vf[0], vf[1]);
+      mma_bf16(o[dt + 1], ph, vf[2], vf[3]);
+      mma_bf16(o[dt + 1], pl, vf[2], vf[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' states now
+
+  // Merge the four warps (each scored other keys of every tile).
+  float* s_acc = reinterpret_cast<float*>(smem);        // [warp][row][D]
+  float* s_m = s_acc + kWarps * kRows * D;              // [warp][row]
+  float* s_l = s_m + kWarps * kRows;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  float* a_lo = s_acc + (warp * kRows + g) * D;
+  float* a_hi = a_lo + 8 * D;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int c = dt * 8 + t * 2;
+    a_lo[c] = o[dt][0];
+    a_lo[c + 1] = o[dt][1];
+    a_hi[c] = o[dt][2];
+    a_hi[c + 1] = o[dt][3];
+  }
+  if (t == 0) {
+    s_m[warp * kRows + g] = m0;
+    s_m[warp * kRows + g + 8] = m1;
+    s_l[warp * kRows + g] = l0;
+    s_l[warp * kRows + g + 8] = l1;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < gn * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w * kRows + r]);
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = s_m[w * kRows + r];
+      const float wt = mw == -INFINITY ? 0.f : exp2f(mw - mx);
+      lsum += s_l[w * kRows + r] * wt;
+      asum += s_acc[(w * kRows + r) * D + d] * wt;
+    }
+    const long long bh = static_cast<long long>(b) * p.H + h0 + r;
+    if (p.num_splits == 1) {
+      store1(static_cast<__nv_bfloat16*>(p.out) + bh * D + d,
+             lsum > 0.f ? asum / lsum : 0.f);
+    } else {
+      const long long o_ = bh * p.num_splits + split;
+      p.part_acc[o_ * D + d] = asum;
+      if (d == 0) {
+        p.part_m[o_] = mx == -INFINITY ? -INFINITY : mx * kLn2;  // natural log
+        p.part_l[o_] = lsum;
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  constexpr int smem = TcCfg<D>::kSmem;  // above 48 KB: opt in
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_split_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.num_splits, p.B * p.KV * p.HC);
+  decode_split_kernel_tc<D><<<grid, kThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.num_splits == 1) return err;
+  decode_merge_kernel<__nv_bfloat16><<<p.B * p.H, p.D, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
-// axis of q, k and v must be contiguous and 4-element aligned.
+// axis of q, k and v must be contiguous; the bf16 D = 64/128 path copies
+// 16-byte chunks (strides a multiple of 8 elements, 16-byte-aligned data).
 extern "C" int decode_attention_forward(
     const void* q, const void* k, const void* v, const int* lengths,
     void* out, float* part_m, float* part_l, float* part_acc,
@@ -303,15 +633,17 @@ extern "C" int decode_attention_forward(
            B, H, KV, S, D, H / KV, 0,
            q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            window, scale, num_splits, split_size};
-  // Heads per block: the group size rounded up to a power of two, at
-  // most 16; larger groups are cut into chunks of 16 (grid dimension y).
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && (D == 64 || D == 128)) {
+    p.HC = (p.G + kRows - 1) / kRows;  // chunks of 16 q-heads
+    return D == 64 ? launch_tc<64>(p, s) : launch_tc<128>(p, s);
+  }
+  // CUDA cores: heads per block, the group size rounded up to a power of
+  // two, at most 16; larger groups are cut into chunks of 16.
   int gm = 1;
   while (gm < p.G && gm < 16) gm <<= 1;
   p.HC = (p.G + gm - 1) / gm;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_dim<float>(gm, p, s);
-    case 1: return dispatch_dim<__nv_bfloat16>(gm, p, s);
-  }
+  if (dtype == 0) return dispatch_dim<float>(gm, p, s);
+  if (dtype == 1 && D == 16) return dispatch_heads<__nv_bfloat16, 4>(gm, p, s);
   return cudaErrorInvalidValue;
 }

@@ -5,13 +5,15 @@ Replaces ``repro/kernels/decode_attention/kernel.py::decode_attention``
 (the Pallas TPU kernel, body ``_decode_kernel``). Bound: memory, the valid
 KV bytes ``B * KV * min(len, S) * D * 2 * sizeof(dtype)`` at 3.35 TB/s;
 the design (split-K over the key axis plus a merge pass, instead of the
-TPU's one sequential program per (row, kv-head)) is described at the top
-of the CUDA source.
+TPU's one sequential program per (row, kv-head); for bf16 at D = 64 and
+128 a tensor-core pipeline of 64-key tiles) is described at the top of
+the CUDA source.
 
 The wrapper takes the plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches the kernel or raises: there is no fall-back.
 ``decode_attention.launches`` counts the calls that launched the kernel;
-each such call is two device launches, the split pass and the merge.
+each such call is one device launch when the plan has one split on the
+tensor-core path, else two (the split pass and the merge).
 """
 from __future__ import annotations
 
@@ -28,8 +30,10 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (16, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-NUM_SMS = 132            # H100 SXM; the split heuristic aims at 2 blocks/SM
-MIN_SPLIT = 32           # keys per split below which splitting stops paying
+NUM_SMS = 132            # H100 SXM
+TILE_KEYS = 64           # the tensor-core path's key tile
+MIN_SPLIT = 32           # CUDA-core path: keys per split below which
+                         # splitting stops paying
 
 
 @functools.cache
@@ -43,9 +47,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def heads_per_block(group: int) -> int:
-    """Query heads one block serves, as the CUDA source picks them: the
-    GQA group size rounded up to a power of two, at most 16."""
+def tensor_cores(dtype: torch.dtype, D: int) -> bool:
+    """Whether the CUDA source runs (dtype, D) on its tensor-core path."""
+    return dtype == torch.bfloat16 and D in (64, 128)
+
+
+def heads_per_block(group: int, tc: bool = True) -> int:
+    """Query heads one block serves, as the CUDA source picks them: 16 on
+    the tensor-core path (mma.sync's M); on the CUDA-core path the GQA
+    group size rounded up to a power of two, at most 16."""
+    if tc:
+        return 16
     gm = 1
     while gm < group and gm < 16:
         gm *= 2
@@ -53,16 +65,28 @@ def heads_per_block(group: int) -> int:
 
 
 def split_plan(B: int, KV: int, H: int, S: int,
-               num_splits: Optional[int] = None) -> Tuple[int, int]:
+               num_splits: Optional[int] = None, *,
+               tc: bool = True) -> Tuple[int, int]:
     """(num_splits, keys per split) for a cache of S positions. Chosen
-    from shapes only (the lengths stay on the device): enough splits for
-    about two blocks per SM, each of at least ``MIN_SPLIT`` keys."""
+    from shapes only (the lengths stay on the device). Tensor-core path:
+    splits of whole 64-key tiles, about one block per SM (each keeps up
+    to its ring's depth of tiles in flight; more, shorter blocks measured
+    slower at the long shape) and never more splits than tiles; with one
+    split the block writes the output and the merge launch is skipped.
+    CUDA-core path: about two blocks per SM, each of at least
+    ``MIN_SPLIT`` keys."""
+    group = H // KV
+    rows = B * KV * -(-group // heads_per_block(group, tc))
     if num_splits is None:
-        group = H // KV
-        rows = B * KV * -(-group // heads_per_block(group))
-        num_splits = max(1, min(-(-2 * NUM_SMS // rows), -(-S // MIN_SPLIT)))
+        if tc:
+            tiles = -(-S // TILE_KEYS)
+            num_splits = min(max(1, (NUM_SMS + rows // 2) // rows), tiles)
+        else:
+            num_splits = min(-(-2 * NUM_SMS // rows), -(-S // MIN_SPLIT))
     num_splits = max(1, min(num_splits, S))
     split = -(-S // num_splits)
+    if tc and num_splits > 1:        # whole tiles
+        split = min(S, -(-split // TILE_KEYS) * TILE_KEYS)
     return -(-S // split), split
 
 
@@ -83,11 +107,17 @@ def _check(q, k, v, lengths) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    # the tensor-core path copies 16-byte chunks, the CUDA-core path
+    # reads 4 elements at a time
+    align = 16 if tensor_cores(q.dtype, D) else 4 * q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) \
-                or t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{name}: last axis must be contiguous and every "
-                             f"stride a multiple of 4 (strides {t.stride()})")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: last axis must be contiguous "
+                             f"(strides {t.stride()})")
+        if any(s * t.element_size() % align for s in t.stride()[:-1]) \
+                or t.data_ptr() % align:
+            raise ValueError(f"{name}: every stride and the data must be "
+                             f"{align}-byte aligned (strides {t.stride()})")
     if not lengths.is_contiguous():
         raise ValueError("lengths must be contiguous")
 
@@ -108,10 +138,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, lengths)
     B, H, D = q.shape
     KV, S = k.shape[1], k.shape[2]
-    ns, split = split_plan(B, KV, H, S, num_splits)
+    tc = tensor_cores(q.dtype, D)
+    ns, split = split_plan(B, KV, H, S, num_splits, tc=tc)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    part_ml = torch.empty((2, B, H, ns), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B, H, ns, D), dtype=torch.float32,
+    # float32 partials (m, l, acc) for the merge pass; none when the
+    # tensor-core path's single split writes the output itself
+    np_ = ns if ns > 1 or not tc else 0
+    part_ml = torch.empty((2, B, H, np_), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((B, H, np_, D), dtype=torch.float32,
                            device=q.device)
     err = library().decode_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),

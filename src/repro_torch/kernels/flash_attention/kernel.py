@@ -6,9 +6,11 @@ Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention``
 reference has no gradient for it either. Bound: operations, ``4 * D``
 flops per visible (query, key) pair at 989 TFLOP/s in bf16 (67 TFLOP/s
 in float32, which runs without TF32); the design (one block per query
-tile, head and batch row, a loop over key tiles in shared memory,
-``mma.sync`` tensor-core tiles for bf16) is described at the top of the
-CUDA source.
+tile, head and batch row, a loop over key tiles in shared memory; for
+bf16 at D = 64 and 128 a warp-specialised kernel that loads tiles with
+TMA and multiplies with ``wgmma``, P entering P @ V as two bf16 terms at
+D = 128 and as fp16 at D = 64) is described at the top of the CUDA
+source.
 
 The wrapper takes the plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches the kernel or raises: there is no fall-back.
@@ -62,11 +64,17 @@ def _check(q, k, v) -> None:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) \
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: last axis must be contiguous "
+                             f"(strides {t.stride()})")
+        # TMA's rules (the bf16 kernels load tiles through tensor maps):
+        # a 16-byte-aligned base and strides that are multiples of 16 bytes
+        if any(s * t.element_size() % 16 for s in t.stride()[:-1]) \
                 or t.data_ptr() % 16:
-            raise ValueError(f"{name}: last axis must be contiguous, every "
-                             f"stride a multiple of 8 and the data 16-byte "
-                             f"aligned (strides {t.stride()})")
+            raise ValueError(f"{name}: TMA needs 16-byte-aligned data and "
+                             f"strides that are multiples of 16 bytes "
+                             f"(strides {t.stride()}, "
+                             f"address {t.data_ptr():#x})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -118,6 +118,34 @@ def test_kernel_input_checks():
 @pytest.mark.parametrize("B,KV,H,S", [(4, 2, 24, 512), (8, 2, 24, 4096),
                                       (4, 1, 24, 37), (1, 8, 40, 3)])
 def test_split_plan_covers_the_cache(B, KV, H, S):
+    for tc in (True, False):
+        ns, split = K.split_plan(B, KV, H, S, tc=tc)
+        assert 1 <= ns <= S and (ns - 1) * split < S <= ns * split
+        assert K.split_plan(B, KV, H, S, num_splits=1, tc=tc) == (1, S)
+        if tc and ns > 1:            # the tensor-core path splits by tiles
+            assert split % K.TILE_KEYS == 0
+    # about one tensor-core block per SM where the cache has the tiles
     ns, split = K.split_plan(B, KV, H, S)
-    assert 1 <= ns <= S and (ns - 1) * split < S <= ns * split
-    assert K.split_plan(B, KV, H, S, num_splits=1) == (1, S)
+    rows = B * KV * -(-(H // KV) // 16)
+    tiles = -(-S // K.TILE_KEYS)
+    assert ns <= tiles and 2 * ns * rows >= min(K.NUM_SMS, rows * tiles)
+
+
+def test_kernel_input_checks_tensor_core_alignment():
+    """The bf16 path at D = 64 and 128 copies 16-byte chunks: strides and
+    data must be 16-byte aligned; the CUDA-core paths need 4 elements."""
+    B, H, KV, S, D = 2, 4, 2, 40, 64
+    q = torch.zeros(B, H, D, dtype=torch.bfloat16)
+    cache = torch.zeros(B, S, KV, D, dtype=torch.bfloat16)
+    lengths = torch.zeros(B, dtype=torch.int32)
+    K._check(q, cache.transpose(1, 2), cache.transpose(1, 2), lengths)
+    odd = torch.zeros(B, S, KV, D + 4, dtype=torch.bfloat16)[..., :D]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K._check(q, odd.transpose(1, 2), cache.transpose(1, 2), lengths)
+    # float32 at the same layout (strides of 68 elements) is accepted
+    odd32 = torch.zeros(B, S, KV, D + 4)[..., :D]
+    K._check(q.float(), odd32.transpose(1, 2), odd32.transpose(1, 2),
+             lengths)
+    assert K.tensor_cores(torch.bfloat16, 128)
+    assert not K.tensor_cores(torch.bfloat16, 16)
+    assert not K.tensor_cores(torch.float32, 128)

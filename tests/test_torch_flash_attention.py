@@ -206,6 +206,29 @@ def test_kernel_input_checks():
             K._check(*args)
 
 
+def test_kernel_input_checks_tma_alignment():
+    """The bf16 kernels load tiles with TMA, which needs a 16-byte-aligned
+    base and strides that are multiples of 16 bytes: the wrapper refuses
+    other layouts (on any device) instead of handing them to the card."""
+    B, S, H, KV, D = 2, 40, 4, 2, 64
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    kv = torch.zeros(B, S, 2 * KV + 1, D + 8, dtype=torch.bfloat16)
+    k, v = kv[:, :, :KV, :D], kv[:, :, KV:2 * KV, :D]
+    K._check(q, k, v)                    # strided views of a fused output
+    flat = torch.zeros(B * S * H * D + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + B * S * H * D].view(B, S, H, D)     # base + 2 bytes
+    with pytest.raises(ValueError, match="TMA"):
+        K._check(shifted, k, v)
+    odd = torch.zeros(B, S, KV, D + 4, dtype=torch.bfloat16)[..., :D]
+    with pytest.raises(ValueError, match="TMA"):   # row stride 136 bytes
+        K._check(q, odd, v)
+    with pytest.raises(ValueError, match="TMA"):
+        K._check(q, k, odd)
+    # float32: 16 bytes are 4 elements
+    K._check(q.float(), torch.zeros(B, S, KV, D + 4)[..., :D],
+             torch.zeros(B, S, KV, D + 4)[..., :D])
+
+
 def test_no_kernel_is_built_on_the_cpu_path():
     from repro_torch.kernels import build
     q, k, v, _, _ = _inputs(CASES["gqa"])

@@ -26,6 +26,10 @@ CASES = [
     (3, 4, 2, 37, 16, [0, 42, 13], 5),               # the CPU tests' widths
     (2, 24, 2, 45, 64, [45, 3], 0),
     (2, 40, 8, 2049, 128, [2049, 1500], 0),          # G=5, long
+    # the tensor-core path's tile edges (64 keys): S = 64 +- 1, G = 48
+    (2, 24, 2, 65, 128, [65, 63], 0),
+    (2, 48, 1, 129, 128, [129, 64], 0),
+    (2, 48, 1, 600, 128, [600, 450], 100),           # window cuts tiles
 ]
 
 
@@ -86,6 +90,12 @@ def test_decode_attention_kernel_refuses_bad_inputs():
     with pytest.raises(ValueError):
         decode_attention(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2),
                          lens.cpu())
+    # the tensor-core path copies 16-byte chunks: 264-byte cache rows
+    padded = torch.zeros(*kc.shape[:3], kc.shape[3] + 4, dtype=kc.dtype,
+                         device=dev)[..., :kc.shape[3]]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(q[:, 0], padded.transpose(1, 2), vc.transpose(1, 2),
+                         lens)
 
 
 # --- flash attention ------------------------------------------------------
@@ -103,6 +113,13 @@ FLASH_CASES = [
     (2, 300, 300, 8, 4, 128, False, 64),       # non-causal with a window
     (2, 513, 513, 8, 2, 64, True, 100),        # D=64, ragged, window
     (3, 37, 37, 4, 2, 16, True, 5),            # the CPU tests' widths
+    # the wgmma kernel's tile edges (128 queries x 128 keys): S = 128 +- 1,
+    # windows that cut a tile, and a block whose consumers see other tiles
+    (2, 127, 127, 8, 2, 128, True, 0),
+    (2, 129, 129, 8, 2, 128, False, 0),
+    (2, 129, 127, 8, 2, 64, False, 0),
+    (1, 600, 600, 8, 2, 128, True, 200),
+    (2, 700, 700, 8, 8, 64, True, 70),
 ]
 
 
@@ -140,16 +157,48 @@ def test_flash_attention_kernel_matches_plain(case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("v_scale", [1e6, 1e-15, 1e-30, 3e37])
+def test_flash_attention_fp16_route_scales_v_into_range(v_scale):
+    """fp16 holds 65504 at most and loses bits below 6e-5: at D = 64,
+    where P meets V in fp16, the kernel scales V by a power of two first,
+    so V far beyond either end of fp16's range (still normal in bf16)
+    gives the plain version's answer, not inf or 0. Both outputs are
+    divided by ``v_scale`` before the bound is taken, so that the bound's
+    mean square neither overflows nor underflows in float32."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    dev = _cuda()
+    for case in (FLASH_CASES[12], FLASH_CASES[5]):
+        q, k, v, causal, window = _flash_inputs(case, torch.bfloat16, dev)
+        v = (v.float() * v_scale).bfloat16()
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        _assert_close(got.double() / v_scale, want.double() / v_scale,
+                      torch.bfloat16)
+
+
+@pytest.mark.gpu
 def test_flash_attention_kernel_refuses_bad_inputs():
     from repro_torch.kernels.flash_attention import flash_attention
     dev = _cuda()
-    q, k, v, _, _ = _flash_inputs(FLASH_CASES[-1], torch.bfloat16, dev)
+    q, k, v, _, _ = _flash_inputs(FLASH_CASES[9], torch.bfloat16, dev)
     with pytest.raises(ValueError, match="dtypes"):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(*(torch.cat([t, t], -1) for t in (q, k, v)))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    q, k, v, _, _ = _flash_inputs(FLASH_CASES[10], torch.bfloat16, dev)
+    flat = torch.zeros(q.numel() + 8, dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="TMA"):       # base + 2 bytes
+        flash_attention(flat[1:1 + q.numel()].view(q.shape), k, v)
+    with pytest.raises(ValueError, match="TMA"):       # 136-byte rows
+        padded = torch.zeros(*k.shape[:3], k.shape[3] + 4, dtype=k.dtype,
+                             device=dev)
+        flash_attention(q, k, padded[..., :k.shape[3]])
+    q, k, v, _, _ = _flash_inputs(FLASH_CASES[9], torch.bfloat16, dev)
     with pytest.raises(RuntimeError, match="no gradient either"):
         flash_attention(q.float().requires_grad_(), k.float(), v.float())
     with torch.no_grad():
