@@ -28,8 +28,11 @@ phases that each print their name and ``ok``:
    Sq = 129 against Sk = 127 at D = 64), in bf16 and fp32; and, at
    D = 64, where P meets V in fp16, V far beyond either end of fp16's
    range;
-5. ssd-vs-plain: the SSD kernel against its plain version (the per-token
-   recurrence) on zamba2's forward shape, a ragged S and fast decays,
+5. ssd-vs-plain: the SSD kernels (bf16: tensor cores; fp32: CUDA
+   cores) against their plain version (the per-token recurrence) on
+   zamba2's forward shape, a ragged S, fast decays, head counts that are
+   not a multiple of the bf16 kernel's two-head blocks (3, 5), S = 63, 64
+   and 65, P = N = 32 and a long (8192-token) slowly decaying sequence,
    with B and C read as column slices, in bf16 and fp32;
 6. rwkv6-vs-plain: the WKV kernel against its plain version on rwkv6's
    forward shape with pathological decays, with a nonzero and a zero
@@ -56,7 +59,8 @@ phases that each print their name and ``ok``:
     gemma3-27b, zamba2-1.2b and rwkv6-7b in float32 on the card against
     the same steps on the CPU, from the same numpy weights;
 13. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
-    through the kernels (38 SSD and 6 flash launches) and through the
+    through the kernels (38 SSD launches, all of the bf16 tensor-core
+    kernel in the profiled bf16 forward, and 6 flash) and through the
     plain paths, in bf16 and in float32: the float32 logits must agree
     within 1e-3 x max|logit|, and the bf16 kernel path must be no further
     from them, in root mean square, than 1.5x the bf16 plain path (bf16
@@ -146,6 +150,16 @@ SSD_SHAPES = {
     "forward": (4, 2048, 64, 64, 64, -0.5),            # zamba2-1.2b
     "ragged": (2, 1000, 8, 64, 64, -0.5),
     "fast_decay": (2, 333, 4, 64, 64, -20.0),
+    # the bf16 tensor-core kernel's edges: heads that are not a multiple
+    # of its two-head blocks, S around one 64-token chunk, P = N = 32, and
+    # the carried state through 128 chunks of slow decay
+    "heads3": (2, 300, 3, 64, 64, -0.5),
+    "heads5": (2, 300, 5, 64, 64, -0.5),
+    "s63": (2, 63, 4, 64, 64, -0.5),
+    "s64": (2, 64, 4, 64, 64, -0.5),
+    "s65": (2, 65, 4, 64, 64, -0.5),
+    "pn32": (2, 500, 8, 32, 32, -0.5),
+    "long_slow": (1, 8192, 8, 64, 64, -0.05),
 }
 # name: (B, S, H, D, nonzero initial state); decays w = exp(-exp(U(-8, 4)))
 WKV_SHAPES = {
@@ -1077,14 +1091,14 @@ def main() -> int:
                       and rcfg.ssm_heads * rcfg.ssm_head_dim == 4096,
                       "not zamba2-1.2b at full width")
                 n_shared = num_shared_invocations(rcfg)
-                expect = [(ssd_scan, rcfg.num_layers, "ssd_scan_kernel"),
+                expect = [(ssd_scan, rcfg.num_layers, "ssd_scan_tc_kernel"),
                           (flash_attention, n_shared, "flash_fwd"),
                           (rwkv6_scan, 0, "wkv_kernel")]
             else:
                 check(rcfg.num_layers == 32 and rcfg.d_model == 4096
                       and rcfg.d_ff == 14336, "not rwkv6-7b at full width")
                 expect = [(rwkv6_scan, rcfg.num_layers, "wkv_kernel"),
-                          (ssd_scan, 0, "ssd_scan_kernel"),
+                          (ssd_scan, 0, "ssd_scan"),
                           (flash_attention, 0, "flash_fwd")]
             batch = make_batch(rcfg, *FORWARD_BATCH, seed=0)
             plain = with_impls(rmodel, attn_impl="torch", ssm_impl="torch",

@@ -1,18 +1,32 @@
 """Mamba-2 SSD scan on Hopper: the wrapper around the hand-written CUDA
-kernel in ``csrc/ssd_scan.cu``.
+kernels in ``csrc/ssd_scan.cu``.
 
 Replaces ``repro/kernels/ssd_scan/kernel.py::ssd_scan`` (the Pallas TPU
 kernel, body ``_ssd_kernel``), forward only: the reference has no
 gradient for it either. Bound: bytes at zamba2-1.2b's bf16 forward shape
-(xdt and y dominate, ~138 MB at 3.35 TB/s); the design (one block per
-(batch row, head) looping over 64-token chunks with the float32 state in
-shared memory, the ragged last chunk zero-padded) is described at the top
+(xdt and y dominate, ~138 MB at 3.35 TB/s, 41.3 us). The C entry picks
+the kernel by dtype:
+
+- bfloat16: ``ssd_scan_tc_kernel``. One block of 16 warps per (batch
+  row, pair of heads) loops over 64-token chunks; the chunk products run
+  on the tensor cores (``mma.sync``, float32 accumulation), the masked
+  C B^T and the carried state as bf16 hi + lo, the decay-weighted B as
+  one bf16 term; C B^T is formed once per chunk for both heads; chunk
+  loads are ``cp.async``, double-buffered; the decay cumsum is a float64
+  warp scan. It reads 16-byte chunks, so it takes P and N that are
+  multiples of 8 and xdt, B and C whose bases and strides are multiples
+  of 16 bytes (the model's column slices are); the wrapper refuses
+  others.
+- float32: ``ssd_scan_kernel``, one block per (batch row, head), the
+  products in float32 on the CUDA cores.
+
+The ragged last chunk is zero-padded; the design is described at the top
 of the CUDA source.
 
 The wrapper takes the plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches the kernel or raises: there is no fall-back.
 It refuses inputs that autograd would need a gradient through, on any
-device. ``ssd_scan.launches`` counts the calls that launched the kernel
+device. ``ssd_scan.launches`` counts the calls that launched a kernel
 (one device launch each).
 """
 from __future__ import annotations
@@ -70,6 +84,23 @@ def _check(xdt, Bc, Cc, dA) -> None:
                              f"(strides {t.stride()})")
 
 
+def _check_aligned(xdt, Bc, Cc) -> None:
+    """The bf16 kernel reads rows in 16-byte chunks with cp.async: P and N
+    multiples of 8, and 16-byte-aligned bases and strides of xdt, B and
+    C."""
+    P, N = xdt.shape[-1], Bc.shape[-1]
+    if P % 8 or N % 8:
+        raise ValueError(f"bfloat16: head dim {P} and state dim {N} must be "
+                         f"multiples of 8 (16-byte cp.async chunks)")
+    for name, t in (("xdt", xdt), ("B", Bc), ("C", Cc)):
+        if any(s * t.element_size() % 16 for s in t.stride()[:-1]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: cp.async needs 16-byte-aligned data "
+                             f"and strides that are multiples of 16 bytes "
+                             f"(strides {t.stride()}, "
+                             f"address {t.data_ptr():#x})")
+
+
 def ssd_scan(xdt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
              dA: torch.Tensor) -> torch.Tensor:
     """xdt (B, S, H, P); single-group Bc/Cc (B, S, N); dA (B, S, H)
@@ -83,6 +114,8 @@ def ssd_scan(xdt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
         raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, got "
                          f"{xdt.device}")
     _check(xdt, Bc, Cc, dA)
+    if xdt.dtype == torch.bfloat16:
+        _check_aligned(xdt, Bc, Cc)
     Bsz, S, H, P = xdt.shape
     y = torch.empty((Bsz, S, H, P), dtype=xdt.dtype, device=xdt.device)
     err = library().ssd_scan_forward(

@@ -215,6 +215,17 @@ SSD_CASES = [
     (2, 333, 4, 64, 64, -20.0),       # fast decays, ragged
     (3, 37, 8, 16, 16, -0.5),         # the CPU tests' widths
     (1, 1, 2, 32, 16, -0.5),          # one token
+    # the bf16 tensor-core kernel's edges: heads that are not a multiple
+    # of its two-head blocks, S around one 64-token chunk, P = N = 32, and
+    # a long, slowly decaying sequence (the carried state through 128
+    # chunks)
+    (2, 300, 3, 64, 64, -0.5),
+    (2, 300, 5, 64, 64, -0.5),
+    (2, 63, 4, 64, 64, -0.5),
+    (2, 64, 4, 64, 64, -0.5),
+    (2, 65, 4, 64, 64, -0.5),
+    (2, 500, 8, 32, 32, -0.5),
+    (1, 8192, 8, 64, 64, -0.05),
 ]
 
 
@@ -259,6 +270,10 @@ def test_ssd_scan_kernel_refuses_bad_inputs():
         ssd_scan(xdt, Bc.cpu(), Cc, dA)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan(xdt.transpose(2, 3).contiguous().transpose(2, 3), Bc, Cc,
+                 dA)
+    with pytest.raises(ValueError, match="cp.async"):   # C at 2-byte offset
+        ssd_scan(xdt, Bc, torch.zeros(*Cc.shape[:2], Cc.shape[2] + 1,
+                                      dtype=Cc.dtype, device=dev)[..., 1:],
                  dA)
     x = xdt.float().requires_grad_()
     with pytest.raises(RuntimeError, match="no gradient either"):

@@ -15,8 +15,9 @@ Tolerance: float32, 2e-5 x max(1, max|ref|), the reference test's own
 (the chunked and sequential forms sum in another order).
 
 The kernel itself needs the card (``tests/test_torch_kernels_gpu.py``);
-here the wrapper's CPU routing, its input checks and its refusal of
-inputs that need a gradient are checked.
+here the wrapper's CPU routing, its input checks (including the bf16
+kernel's 16-byte cp.async rules) and its refusal of inputs that need a
+gradient are checked.
 """
 import numpy as np
 import pytest
@@ -149,3 +150,29 @@ def test_kernel_input_checks():
     for args in bad:
         with pytest.raises(ValueError):
             K._check(*args)
+
+
+def test_kernel_input_checks_cp_async_alignment():
+    """The bf16 kernel reads 16-byte chunks with cp.async: P and N multiples
+    of 8, and bases and strides of xdt, B and C that are multiples of 16
+    bytes. The model's column slices of the conv output meet the rules;
+    the wrapper refuses other layouts (on any device) before a launch."""
+    bf = torch.bfloat16
+    B, S, H, P, N = 2, 10, 3, 16, 8
+    x = torch.zeros(B, S, H, P, dtype=bf)
+    conv = torch.zeros(B, S, H * P + 2 * N, dtype=bf)
+    b, c = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    K._check_aligned(x, b, c)              # the model's layout
+    flat = torch.zeros(x.numel() + 8, dtype=bf)
+    shifted = flat[1:1 + x.numel()].view(B, S, H, P)       # base + 2 bytes
+    with pytest.raises(ValueError, match="cp.async"):
+        K._check_aligned(shifted, b, c)
+    odd = torch.zeros(B, S, 2 * N + 3, dtype=bf)    # row stride 38 bytes
+    with pytest.raises(ValueError, match="cp.async"):
+        K._check_aligned(x, odd[..., :N], c)
+    with pytest.raises(ValueError, match="cp.async"):
+        K._check_aligned(x, b, odd[..., 1:1 + N])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K._check_aligned(x[..., :12], b, c)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K._check_aligned(x, conv[..., :4], conv[..., 4:8])
