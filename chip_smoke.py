@@ -34,10 +34,13 @@ phases that each print their name and ``ok``:
    not a multiple of the bf16 kernel's two-head blocks (3, 5), S = 63, 64
    and 65, P = N = 32 and a long (8192-token) slowly decaying sequence,
    with B and C read as column slices, in bf16 and fp32;
-6. rwkv6-vs-plain: the WKV kernel against its plain version on rwkv6's
-   forward shape with pathological decays, with a nonzero and a zero
-   initial state, and a ragged S; outputs and final states (fp32, as the
-   model passes them);
+6. rwkv6-vs-plain: the WKV kernel against its plain version, every shape
+   with r, k, v (and o) in bf16 and in fp32: rwkv6's forward shape with
+   pathological decays, with a nonzero and a zero initial state, r, k, v
+   as views of one fused projection and as the model's contiguous
+   tensors; a ragged S; S = 1, 31, 32, 33 around the kernel's 32-token
+   blocks; D = 16 and 32; and 8192 slowly decaying tokens (the largest
+   state); outputs and final states (float32);
 7. decode-cell: full-width starcoder2 decode steps with the kernel and
    with the plain version on the same cache; logits must agree;
 8. serve: the serve entry point's engine answers 8 requests undisturbed,
@@ -80,7 +83,9 @@ phases that each print their name and ``ok``:
     reached: decode at the serve shape, a long cache and zamba2's decode
     cell (SDPA with the length mask and, since the lengths are full,
     without one); flash at the starcoder2 forward, a gemma3 local layer
-    and zamba2's shared block.
+    and zamba2's shared block; the SSD scan at zamba2's forward; WKV at
+    rwkv6's forward in fp32 (fused views, nonzero s0) and as the model
+    calls it (bf16 r, k, v and o, zero s0).
 
 Any failure raises and exits non-zero. The last lines are the kernel
 records (JSON), the card's name and power limit, and
@@ -91,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -161,11 +167,21 @@ SSD_SHAPES = {
     "pn32": (2, 500, 8, 32, 32, -0.5),
     "long_slow": (1, 8192, 8, 64, 64, -0.05),
 }
-# name: (B, S, H, D, nonzero initial state); decays w = exp(-exp(U(-8, 4)))
+# name: (B, S, H, D, nonzero initial state, r/k/v as views of one fused
+# projection (else the model's contiguous tensors), lowest log-log decay):
+# decays w = exp(-exp(U(lo, 4))), or U(-8, -6) for the slow shape
 WKV_SHAPES = {
-    "forward": (4, 2048, 64, 64, True),                # rwkv6-7b
-    "zero_s0": (4, 2048, 64, 64, False),
-    "ragged": (2, 1000, 8, 64, True),
+    "forward": (4, 2048, 64, 64, True, True, -8.0),    # rwkv6-7b
+    "model": (4, 2048, 64, 64, False, False, -8.0),    # as the model calls
+    "zero_s0": (4, 2048, 64, 64, False, True, -8.0),
+    "ragged": (2, 1000, 8, 64, True, True, -8.0),
+    "s1": (2, 1, 8, 64, True, False, -8.0),
+    "s31": (2, 31, 8, 64, True, True, -8.0),
+    "s32": (2, 32, 8, 64, True, False, -8.0),
+    "s33": (2, 33, 8, 64, True, True, -8.0),
+    "d16": (3, 300, 4, 16, True, True, -8.0),
+    "d32": (2, 300, 8, 32, True, False, -8.0),
+    "slow": (2, 8192, 8, 64, True, False, None),       # U(-8, -6)
 }
 FORWARD_BATCH = (4, 2048)
 TRAIN_ARGS = ["--full", "--arch", "starcoder2-3b", "--steps", "3",
@@ -313,30 +329,41 @@ def ssd_bound_ms(shape, dtype):
                                        else "operations"), flops, nbytes
 
 
-def wkv_inputs(torch, shape, gen):
-    """r, k, v (B, S, H, D) as views of one fused projection output, the
-    decays drawn as the reference's kernel test draws them (down to
-    exp(-e^4) ~ 1.9e-24), u (H, D) and s0 (B, H, D, D) or None; float32,
-    as the model passes them."""
-    B, S, H, D, with_s0 = shape
-    rkv = torch.randn(B, S, H, 3 * D, generator=gen, device="cuda")
-    w = torch.exp(-torch.exp(-8 + 12 * torch.rand(
+def wkv_inputs(torch, shape, gen, dtype="float32"):
+    """r, k, v (B, S, H, D) in ``dtype``, as views of one fused projection
+    output or as three contiguous tensors (the model's call); the decays
+    (float32) drawn as the reference's kernel test draws them, down to
+    exp(-e^4) ~ 1.9e-24, or slowly (exp(-exp(U(-8, -6)))); u (H, D) and
+    s0 (B, H, D, D) or None, float32."""
+    B, S, H, D, with_s0, fused, lo = shape
+    dt = getattr(torch, dtype)
+    if fused:
+        rkv = torch.randn(B, S, H, 3 * D, generator=gen,
+                          device="cuda").to(dt)
+        r, k, v = rkv[..., :D], rkv[..., D:2 * D], rkv[..., 2 * D:]
+    else:
+        r, k, v = (torch.randn(B, S, H, D, generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+    lo, hi = (-8.0, -6.0) if lo is None else (lo, 4.0)
+    w = torch.exp(-torch.exp(lo + (hi - lo) * torch.rand(
         B, S, H, D, generator=gen, device="cuda")))
     u = torch.randn(H, D, generator=gen, device="cuda")
     s0 = torch.randn(B, H, D, D, generator=gen, device="cuda") \
         if with_s0 else None
-    return rkv[..., :D], rkv[..., D:2 * D], rkv[..., 2 * D:], w, u, s0
+    return r, k, v, w, u, s0
 
 
-def wkv_bound_ms(shape):
-    """Least time for the work: r, k, v, w, u and s0 read once and o and
-    the final state written once (float32) against the memory rate; and
-    the recurrence's 5 flops per state entry per token and head (r^T S,
-    then w * S + k v^T) against the float32 peak."""
-    B, S, H, D, with_s0 = shape
+def wkv_bound_ms(shape, dtype="float32"):
+    """Least time for the work: r, k, v (in ``dtype``), w, u and s0
+    (float32) read once, o (in ``dtype``) and the final state (float32)
+    written once, against the memory rate; and the recurrence's 5 flops
+    per state entry per token and head (r^T S, then w * S + k v^T)
+    against the float32 peak."""
+    B, S, H, D, with_s0 = shape[:5]
+    size = 2 if dtype == "bfloat16" else 4
     flops = 5 * B * S * H * D * D
-    nbytes = 4 * (5 * B * S * H * D + H * D
-                  + (2 if with_s0 else 1) * B * H * D * D)
+    nbytes = (4 * size + 4) * B * S * H * D + 4 * (
+        H * D + (2 if with_s0 else 1) * B * H * D * D)
     t_ops = flops / PEAK_FLOPS["float32"]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -804,24 +831,31 @@ def main() -> int:
 
     with phase("rwkv6-vs-plain"):
         max_err = 0.0
-        for name, shape in WKV_SHAPES.items():
-            args_ = wkv_inputs(torch, shape, gen)
+        for (name, shape), dtype in itertools.product(
+                WKV_SHAPES.items(), ("bfloat16", "float32")):
+            args_ = wkv_inputs(torch, shape, gen, dtype)
             t0 = time.monotonic()
             want_o, want_s = rwkv6_plain(*args_)
             torch.cuda.synchronize()
             plain_s = time.monotonic() - t0
             got_o, got_s = rwkv6_scan(*args_)
             torch.cuda.synchronize()
-            for what, got, want in (("o", got_o, want_o),
-                                    ("final state", got_s, want_s)):
-                err, outside = worst(got, want, allowed(want, "float32"))
+            check(got_o.dtype == args_[0].dtype
+                  and got_s.dtype == torch.float32, "WKV output dtypes")
+            # the final state is float32 in both: the float32 gate
+            for what, got, want, gate in (
+                    ("o", got_o, want_o, dtype),
+                    ("final state", got_s, want_s, "float32")):
+                err, outside = worst(got, want, allowed(want, gate))
                 max_err = max(max_err, err)
-                print(f"  {name:8s} float32 {shape[:4]} {what:11s}: "
-                      f"max_abs_err {err:.3e} (tol {TOL_TEXT['float32']}), "
+                print(f"  {name:8s} {dtype:8s} {shape[:4]} {what:11s}: "
+                      f"max_abs_err {err:.3e} (tol {TOL_TEXT[gate]}), "
                       f"{outside} outside; max|ref| "
-                      f"{float(want.abs().max()):.1f}; plain {plain_s:.2f} s")
+                      f"{float(want.float().abs().max()):.1f}; plain "
+                      f"{plain_s:.2f} s")
                 check(outside == 0 and math.isfinite(err),
-                      f"WKV kernel disagrees with plain on {name}/{what}")
+                      f"WKV kernel disagrees with plain on "
+                      f"{name}/{dtype}/{what}")
             del args_, want_o, want_s, got_o, got_s
         wkv_record["max_abs_err"] = max_err
         release(torch)
@@ -1093,11 +1127,12 @@ def main() -> int:
                 n_shared = num_shared_invocations(rcfg)
                 expect = [(ssd_scan, rcfg.num_layers, "ssd_scan_tc_kernel"),
                           (flash_attention, n_shared, "flash_fwd"),
-                          (rwkv6_scan, 0, "wkv_kernel")]
+                          (rwkv6_scan, 0, "wkv_token_kernel")]
             else:
                 check(rcfg.num_layers == 32 and rcfg.d_model == 4096
                       and rcfg.d_ff == 14336, "not rwkv6-7b at full width")
-                expect = [(rwkv6_scan, rcfg.num_layers, "wkv_kernel"),
+                expect = [(rwkv6_scan, rcfg.num_layers,
+                           "wkv_token_kernel"),
                           (ssd_scan, 0, "ssd_scan"),
                           (flash_attention, 0, "flash_fwd")]
             batch = make_batch(rcfg, *FORWARD_BATCH, seed=0)
@@ -1275,33 +1310,45 @@ def main() -> int:
         del ins
         release(torch)
 
-        shape = WKV_SHAPES["forward"]
-        B, S, H, D, _ = shape
-        n = max(2, math.ceil(2 * L2_BYTES / (5 * 4 * B * S * H * D)))
-        ins = [wkv_inputs(torch, shape, gen) for _ in range(n)]
-        ms = device_ms(torch, lambda i: rwkv6_scan(*ins[i]), n, calls=16,
-                       reps=3)
-        plain = device_ms(torch, lambda i: rwkv6_plain(*ins[i]), n,
-                          calls=1, reps=2)
-        bms, by, flops, nbytes = wkv_bound_ms(shape)
-        print(f"  rwkv6_scan forward: B={B} S={S} H={H} D={D} float32, "
-              f"nonzero s0: kernel {ms * 1e3:.1f} us, plain "
-              f"{plain * 1e3:.1f} us, no library call; bound "
-              f"{bms * 1e3:.1f} us ({by}, {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP) [{card_line}]")
-        wkv_timing = {"shape": "forward", "B": B, "S": S, "H": H, "D": D,
-                      "dtype": "float32", "ms": ms, "plain_ms": plain,
-                      "library_ms": None, "bound_ms": bms, "bound_by": by,
-                      "flops": flops, "bytes": nbytes,
-                      "achieved_GBps": nbytes / ms / 1e6}
-        wkv_record.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                          library_ms=None)
-        del ins
-        release(torch)
+        # WKV: the float32 row (fused views, nonzero s0) and the model's
+        # own call (bf16 r, k, v and o, zero s0); the record carries the
+        # model's call, the main path's
+        wkv_timings = []
+        for name, dtype in (("forward", "float32"), ("model", "bfloat16")):
+            shape = WKV_SHAPES[name]
+            B, S, H, D, with_s0 = shape[:5]
+            bms, by, flops, nbytes = wkv_bound_ms(shape, dtype)
+            n = max(2, math.ceil(2 * L2_BYTES / nbytes))
+            ins = [wkv_inputs(torch, shape, gen, dtype) for _ in range(n)]
+            ms = device_ms(torch, lambda i: rwkv6_scan(*ins[i]), n,
+                           calls=16, reps=3)
+            plain = device_ms(torch, lambda i: rwkv6_plain(*ins[i]), n,
+                              calls=1, reps=2)
+            print(f"  rwkv6_scan {name}: B={B} S={S} H={H} D={D} {dtype} "
+                  f"r/k/v/o, {'nonzero' if with_s0 else 'zero'} s0: kernel "
+                  f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, no "
+                  f"library call; bound {bms * 1e3:.1f} us ({by}, "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+                  f"{bms / ms:.3f} of it [{card_line}]")
+            wkv_timings.append({
+                "shape": name, "B": B, "S": S, "H": H, "D": D,
+                "dtype": dtype, "s0": with_s0, "ms": ms, "plain_ms": plain,
+                "library_ms": None, "bound_ms": bms, "bound_by": by,
+                "flops": flops, "bytes": nbytes,
+                "achieved_GBps": nbytes / ms / 1e6, "bound_share": bms / ms})
+            del ins
+            release(torch)
+        fp32_t, model_t = wkv_timings
+        wkv_record.update(
+            ms=model_t["ms"], plain_ms=model_t["plain_ms"],
+            bound_ms=model_t["bound_ms"], bound_by=model_t["bound_by"],
+            library_ms=None, float32_row={
+                k: fp32_t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")})
         print(json.dumps({"kernel_timings": timings,
                           "flash_timings": flash_timings,
                           "ssd_timing": ssd_timing,
-                          "wkv_timing": wkv_timing,
+                          "wkv_timings": wkv_timings,
                           "serve": serve_stats, "profile": profile_stats,
                           "train": train_stats, "train_parity": parity,
                           "recurrent": recurrent_stats,

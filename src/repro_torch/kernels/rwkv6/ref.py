@@ -15,9 +15,10 @@ def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w (B, S, H, D); u (H, D); s0 (B, H, D, D) or None (zeros).
 
-    The per-token recurrence, in float32:
+    The per-token recurrence, in float32 (every input widened to it):
     ``o_t = r_t^T (S + diag(u) k_t v_t^T)``, ``S = diag(w_t) S + k_t v_t^T``.
-    Returns (o (B, S, H, D) float32, final state (B, H, D, D) float32)."""
+    Returns (o (B, S, H, D) in r's dtype, rounded once from float32,
+    final state (B, H, D, D) float32)."""
     B, S, H, D = r.shape
     r32, k32, v32, w32 = (t.float() for t in (r, k, v, w))
     u32 = u.float()[None, :, :, None]                       # (1, H, D, 1)
@@ -29,4 +30,4 @@ def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(torch.einsum("bhk,bhkv->bhv", r32[:, t],
                                  state + u32 * kv))
         state = w32[:, t, :, :, None] * state + kv
-    return torch.stack(outs, dim=1), state
+    return torch.stack(outs, dim=1).to(r.dtype), state

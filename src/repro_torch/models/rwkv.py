@@ -104,13 +104,14 @@ def apply_tmix(p: Tree, x: torch.Tensor, cfg: ModelConfig,
     xw = _lerp(x, xs, p["mix_w"])
 
     dt = x.dtype
-    f32 = torch.float32
-    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, Dh).to(f32)
-    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, Dh).to(f32)
-    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, Dh).to(f32)
+    # r, k and v stay in the projections' dtype: the kernel and the plain
+    # scan widen them to float32 themselves, and return o in their dtype
+    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, Dh)
+    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, Dh)
+    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, Dh)
     g = F.silu(xg @ p["wg"].to(dt))
     w = rwkv_decay(p, xw).reshape(B, S, H, Dh)                 # float32
-    u = p["u"].to(f32)
+    u = p["u"].to(torch.float32)
 
     if cfg.rwkv_impl == "cuda" and S > 1:
         o, state = rwkv6_scan(r, k, v, w, u, state)

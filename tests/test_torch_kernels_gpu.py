@@ -284,44 +284,61 @@ def test_ssd_scan_kernel_refuses_bad_inputs():
 
 # --- RWKV-6 WKV ---------------------------------------------------------------
 
-# B, S, H, D, initial state: chip_smoke.py's rwkv6 forward shape first
+# B, S, H, D, initial state, r/k/v as views of one fused projection (else
+# the model's contiguous tensors), slow decay: chip_smoke.py's rwkv6
+# forward shape first
 WKV_CASES = [
-    (4, 2048, 64, 64, True),          # rwkv6-7b forward, nonzero s0
-    (4, 2048, 64, 64, False),
-    (2, 1000, 8, 64, True),           # ragged: not a multiple of 16
-    (3, 37, 4, 16, True),             # the CPU tests' widths
-    (1, 1, 2, 32, False),             # one token
+    (4, 2048, 64, 64, True, True, False),     # rwkv6-7b forward, nonzero s0
+    (4, 2048, 64, 64, False, False, False),   # the model's own call
+    (2, 1000, 8, 64, True, True, False),      # ragged: not a multiple of 32
+    (3, 37, 4, 16, True, True, False),        # the CPU tests' widths
+    (1, 1, 2, 32, False, False, False),       # one token
+    (2, 31, 8, 64, True, True, False),        # around one 32-token block
+    (2, 32, 8, 64, True, False, False),
+    (2, 33, 8, 64, True, True, False),
+    (2, 300, 8, 32, True, False, False),      # D = 32
+    (2, 8192, 8, 64, True, False, True),      # slow decay: the largest state
 ]
 
 
-def _wkv_inputs(case, dev, seed=0):
-    """r, k, v as views of one fused projection output; decays drawn as
-    the reference test does, down to exp(-e^4) ~ 1.9e-24."""
-    B, S, H, D, with_s0 = case
+def _wkv_inputs(case, dev, dtype=torch.float32, seed=0):
+    """r, k, v in ``dtype`` as views of one fused projection output or as
+    the model's contiguous tensors; decays drawn as the reference test
+    does, down to exp(-e^4) ~ 1.9e-24, or slowly (exp(-exp(U(-8, -6))));
+    w, u and s0 float32."""
+    B, S, H, D, with_s0, fused, slow = case
     g = torch.Generator(device=dev).manual_seed(seed)
-    rkv = torch.randn(B, S, H, 3 * D, generator=g, device=dev)
-    w = torch.exp(-torch.exp(-8 + 12 * torch.rand(B, S, H, D, generator=g,
-                                                  device=dev)))
+    if fused:
+        rkv = torch.randn(B, S, H, 3 * D, generator=g, device=dev).to(dtype)
+        r, k, v = rkv[..., :D], rkv[..., D:2 * D], rkv[..., 2 * D:]
+    else:
+        r, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+    lo, hi = (-8.0, -6.0) if slow else (-8.0, 4.0)
+    w = torch.exp(-torch.exp(lo + (hi - lo) * torch.rand(
+        B, S, H, D, generator=g, device=dev)))
     u = torch.randn(H, D, generator=g, device=dev)
     s0 = torch.randn(B, H, D, D, generator=g, device=dev) if with_s0 \
         else None
-    return rkv[..., :D], rkv[..., D:2 * D], rkv[..., 2 * D:], w, u, s0
+    return r, k, v, w, u, s0
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", WKV_CASES)
-def test_rwkv6_kernel_matches_plain(case):
+def test_rwkv6_kernel_matches_plain(case, dtype):
     from repro_torch.kernels.rwkv6 import rwkv6_plain, rwkv6_scan
     dev = _cuda()
-    args = _wkv_inputs(case, dev)
+    args = _wkv_inputs(case, dev, dtype)
     want_o, want_s = rwkv6_plain(*args)
     before = rwkv6_scan.launches
     got_o, got_s = rwkv6_scan(*args)
     torch.cuda.synchronize()
     assert rwkv6_scan.launches == before + 1
     assert got_o.shape == args[0].shape and got_s.shape == want_s.shape
-    _assert_close(got_o, want_o, torch.float32)
-    _assert_close(got_s, want_s, torch.float32)
+    assert got_o.dtype == dtype and got_s.dtype == torch.float32
+    _assert_close(got_o, want_o, dtype)
+    _assert_close(got_s, want_s, torch.float32)      # the state: float32
 
 
 @pytest.mark.gpu
@@ -331,6 +348,9 @@ def test_rwkv6_kernel_refuses_bad_inputs():
     r, k, v, w, u, s0 = _wkv_inputs(WKV_CASES[3], dev)
     with pytest.raises(ValueError, match="float32"):
         rwkv6_scan(r.bfloat16(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_scan(*(t.bfloat16()[..., :12] for t in (r, k, v)), w[..., :12],
+                   u[:, :12].contiguous(), None)
     with pytest.raises(ValueError, match="is on cpu"):
         rwkv6_scan(r, k, v, w, u.cpu(), s0)
     with pytest.raises(ValueError, match="head dim"):

@@ -15,6 +15,9 @@ against the JAX package in float32 on the CPU:
 - ``cache_batch_axes`` against the reference's;
 - engine greedy tokens through both prefill modes, ``revoke_slot``,
   ``hard_revoke`` and a drain migration, token for token.
+- reduced rwkv6-7b's time-mix in bf16 (r, k and v reach the WKV
+  recurrence in bf16), against the reference's in bf16 (tolerance in
+  the test).
 
 The reference's zero- and one-initialised leaves (RMS gammas, the gated
 norm, ``ln_x``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``, ``w0``) get
@@ -105,6 +108,56 @@ def test_apply_matches_reference_forward(arch, port_impl, ref_impl, S):
     assert float(aux) == 0.0
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("port_impl,ref_impl", [("torch", "xla"),
+                                                ("cuda", "pallas")])
+def test_rwkv_tmix_bf16_matches_reference(port_impl, ref_impl):
+    """Reduced rwkv6-7b's time-mix in bf16, r, k and v handed to the WKV
+    recurrence in bf16 (the port widens them inside it, the reference
+    casts them first), against the reference's ``apply_tmix`` in bf16 on
+    the same bridged weights, a nonzero initial state and S = 40.
+
+    Tolerance: the output 2^-5 x (|ref| + rms(ref)), four bf16 ulps: the
+    two frameworks round the bf16 work around the recurrence (lerps, the
+    decay's LoRA, the norm and the gate) at different places, which moves
+    this output by up to ~0.9 of two ulps; the final state (float32) 1e-4
+    x (1 + |ref|); the last token exactly."""
+    from repro.models import rwkv as JR
+    from repro_torch.models import rwkv as PR
+    from repro_torch.tree import tree_map
+    jcfg, _, tree = reference("rwkv6-7b", attn_impl="xla", ssm_impl=ref_impl,
+                              rwkv_impl=ref_impl)
+    jcfg = jcfg.replace(dtype="bfloat16")
+    cfg = get_config("rwkv6-7b", reduced=True).replace(
+        dtype="bfloat16", attn_impl="torch", ssm_impl="torch",
+        rwkv_impl=port_impl)
+    tmix = tree_map(lambda t: t[0], params_from_numpy(tree, cfg, "cpu")[
+        "layers"]["tmix"])
+    jtmix = jax.tree.map(lambda a: jnp.asarray(a[0]),
+                         tree["layers"]["tmix"])
+    Bt, S, d = 2, 40, jcfg.d_model
+    H, Dh = d // jcfg.rwkv_head_dim, jcfg.rwkv_head_dim
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((Bt, S, d)).astype(np.float32)
+    s0 = rng.standard_normal((Bt, H, Dh, Dh)).astype(np.float32)
+    jout, jlast, jstate = JR.apply_tmix(
+        jtmix, jnp.asarray(x, jnp.bfloat16), jcfg,
+        jnp.zeros((Bt, 1, d), jnp.bfloat16), jnp.asarray(s0))
+    with torch.no_grad():
+        out, last, state = PR.apply_tmix(
+            tmix, torch.tensor(x).bfloat16(), cfg,
+            torch.zeros(Bt, 1, d, dtype=torch.bfloat16), torch.tensor(s0))
+    assert out.dtype == torch.bfloat16 and state.dtype == torch.float32
+    want = np.asarray(jout.astype(jnp.float32))
+    ref = np.abs(want)
+    bound = 2 ** -5 * (ref + np.sqrt(np.mean(want ** 2)))
+    assert (np.abs(out.float().numpy() - want) <= bound).all()
+    np.testing.assert_array_equal(last.float().numpy(),
+                                  np.asarray(jlast.astype(jnp.float32)))
+    want_s = np.asarray(jstate)
+    assert (np.abs(state.numpy() - want_s)
+            <= 1e-4 * (1 + np.abs(want_s))).all()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -17,8 +17,10 @@ order); 1e-4 absolute across the split, as the reference's continuity
 test.
 
 The kernel itself needs the card (``tests/test_torch_kernels_gpu.py``);
-here the wrapper's CPU routing, its input checks and its refusal of
-inputs that need a gradient are checked.
+here the wrapper's CPU routing (float32 and bf16 r, k, v), its input
+checks and its refusal of inputs that need a gradient are checked, and
+that the plain version computes on bf16 r, k, v exactly what it computes
+on their float32 widening, rounding o once to bf16.
 """
 import numpy as np
 import pytest
@@ -52,6 +54,11 @@ def _inputs(B, H, S, D, seed=0, s0=False, lo=-8.0, hi=4.0):
 
 def _split(rkv, D):
     return rkv[..., :D], rkv[..., D:2 * D], rkv[..., 2 * D:]
+
+
+def _bf16(rkv):
+    """r, k, v as bf16 views of one fused bf16 projection."""
+    return _split(torch.tensor(rkv).bfloat16(), rkv.shape[-1] // 3)
 
 
 def _port(rkv, w, u, s0, fn=rwkv6_plain):
@@ -143,7 +150,8 @@ def test_wrapper_refuses_inputs_that_require_a_gradient():
 
 def test_kernel_input_checks():
     """The checks the wrapper makes before a launch (shapes, D up to 64,
-    float32 only, contiguous last axis, contiguous u and s0)."""
+    one dtype for r, k and v, float32 w, u and s0, contiguous last axis,
+    contiguous u and s0)."""
     rkv, w, u, state = _inputs(2, 3, 10, 16, s0=True)
     r, k, v = _split(torch.tensor(rkv), 16)
     tw, tu, ts = torch.tensor(w), torch.tensor(u), torch.tensor(state)
@@ -155,7 +163,7 @@ def test_kernel_input_checks():
         (wide, wide, wide, wide, torch.zeros(3, 80), None),   # D = 80
         (r, k, v, tw, tu[:2], None),                    # u shape
         (r, k, v, tw, tu, ts[:1]),                      # s0 shape
-        (r.bfloat16(), k, v, tw, tu, None),             # not float32
+        (r.bfloat16(), k, v, tw, tu, None),             # mixed r/k/v
         (r, k, v, tw, tu, ts.double()),
         (r.transpose(2, 3).contiguous().transpose(2, 3), k, v, tw, tu, None),
         (r, k, v, tw, tu.t().contiguous().t(), None),   # u not contiguous
@@ -164,4 +172,66 @@ def test_kernel_input_checks():
     ]
     for args in bad:
         with pytest.raises(ValueError):
+            K._check(*args)
+
+
+def test_plain_widens_bf16_inputs_exactly():
+    """bf16 r, k, v: the plain version computes exactly what it computes on
+    their float32 widening, and returns o rounded once to bf16."""
+    rkv, w, u, state = _inputs(2, 3, 20, 16, s0=True)
+    r, k, v = _bf16(rkv)
+    rest = (torch.tensor(w), torch.tensor(u), torch.tensor(state))
+    o, st = rwkv6_plain(r, k, v, *rest)
+    o32, st32 = rwkv6_plain(r.float(), k.float(), v.float(), *rest)
+    assert o.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert torch.equal(o, o32.bfloat16())
+    assert torch.equal(st, st32)
+
+
+def test_wrapper_routes_bf16_cpu_tensors_to_the_plain_version():
+    from repro_torch.kernels import build
+    rkv, w, u, state = _inputs(2, 3, 20, 16, s0=True)
+    r, k, v = _bf16(rkv)
+    rest = (torch.tensor(w), torch.tensor(u), torch.tensor(state))
+    before = rwkv6_scan.launches
+    got_o, got_s = rwkv6_scan(r, k, v, *rest)
+    want_o, want_s = rwkv6_plain(r, k, v, *rest)
+    assert got_o.dtype == torch.bfloat16 and got_s.dtype == torch.float32
+    assert torch.equal(got_o, want_o) and torch.equal(got_s, want_s)
+    assert rwkv6_scan.launches == before
+    assert "rwkv6" not in build._LOADED
+
+
+def test_kernel_input_checks_bf16():
+    """bf16 r, k, v with float32 w, u and s0 pass, as fused views and as
+    the model's contiguous tensors; mixed r/k/v dtypes, float16, a bf16
+    w, u or s0, and layouts that the kernel's 16-byte copies cannot read
+    are refused."""
+    rkv, w, u, state = _inputs(2, 3, 10, 16, s0=True)
+    r, k, v = _bf16(rkv)
+    tw, tu, ts = torch.tensor(w), torch.tensor(u), torch.tensor(state)
+    K._check(r, k, v, tw, tu, ts)
+    K._check(r.contiguous(), k.contiguous(), v.contiguous(), tw, tu, None)
+    bad_dtypes = [
+        (r, k.float(), v, tw, tu, None),                # mixed r/k/v
+        (r.float(), k, v.float(), tw, tu, None),
+        (r.half(), k.half(), v.half(), tw, tu, None),   # float16
+        (r, k, v, tw.bfloat16(), tu, None),             # bf16 w, u, s0
+        (r, k, v, tw, tu.bfloat16(), None),
+        (r, k, v, tw, tu, ts.bfloat16()),
+    ]
+    for args in bad_dtypes:
+        with pytest.raises(ValueError, match="dtype|float32"):
+            K._check(*args)
+    odd = torch.zeros(2, 10, 3, 49, dtype=torch.bfloat16)   # 98-byte rows
+    wide = torch.zeros(2, 10, 3, 52, dtype=torch.bfloat16)  # 104-byte rows
+    d12 = torch.zeros(2, 10, 3, 12, dtype=torch.bfloat16)  # 24-byte rows
+    bad_layouts = [
+        (odd[..., 1:17], odd[..., 17:33], odd[..., 33:49], tw, tu, None),
+        (wide[..., :16], wide[..., 16:32], wide[..., 32:48], tw, tu, None),
+        (d12, d12, d12, tw[..., :12].contiguous(), tu[:, :12].contiguous(),
+         None),
+    ]
+    for args in bad_layouts:
+        with pytest.raises(ValueError, match="16-byte"):
             K._check(*args)
