@@ -7,7 +7,9 @@ Drives the port's main paths at full width with random weights from a
 seed, through the four hand-written CUDA kernels (decode attention,
 flash attention, the Mamba-2 SSD scan and the RWKV-6 WKV recurrence):
 serving starcoder2-3b (30 layers, d_model 3072, 24 heads / 2 KV heads,
-bf16), its full-sequence forward and its training step; the full-width
+bf16), its full-sequence forward, its training step and its training on
+transient servers (elastic slots, the warning's fast save, restore);
+the paper's ResNet-32 trained elastically; the full-width
 forwards of zamba2-1.2b (38 Mamba-2 layers, d_model 2048, 64 SSM heads x
 P 64, N 64, a shared attention block every 6 layers) and rwkv6-7b (32
 layers, d_model 4096, 64 heads x 64, d_ff 14336); and serving both. In
@@ -61,7 +63,32 @@ phases that each print their name and ``ok``:
 12. train-parity: three ``Trainer.fit`` steps of reduced starcoder2-3b,
     gemma3-27b, zamba2-1.2b and rwkv6-7b in float32 on the card against
     the same steps on the CPU, from the same numpy weights;
-13. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
+13. elastic: ``launch.train --full --elastic`` of starcoder2-3b (through
+    its ``run``): 2 slots, a worker joining at step 1, slot 0 warned at
+    step 2 (a fast save of the whole AdamW state into ``CKPT_DIR``) and
+    revoked at step 3; the active counts must be [1, 2, 2, 1], the LR
+    follow them, the losses and gradient norms be finite and the first
+    loss lie in [ln(vocab), 12.3]; the fast save's seconds, bytes and
+    GB/s against GCE's 30 s warning. Then the state is freed, the fast
+    save restored onto the card and steps 2 and 3 replayed from it (their
+    losses within ``RESUME_TOL`` of the uninterrupted run's), and the
+    result evaluated through the flash kernel and the plain attention:
+    the phase must launch flash once per layer and no other kernel;
+14. checkpoint-resume: reduced starcoder2-3b in float32 on the card with
+    two replicas: a corrupted replica fails over to the other, a torn
+    write (``fail_after_bytes``) leaves the previous step restorable and
+    no ``.tmp_`` debris, and the resumed run equals the uninterrupted one
+    within ``CKPT_PARAM_TOL`` / ``RESUME_TOL``;
+15. resnet32: the paper's ResNet-32 at its published size through
+    ``launch.train --elastic`` (momentum, global batch 128 over 4 slots,
+    a join every 5 steps, one warned revocation, 20 steps): the active
+    counts as scheduled, finite losses, steps/s, and 5 more steps under
+    torch.profiler for the device-busy share; the first step's loss and
+    gradients in float32 on the card held to float64 on the CPU (and
+    the run's bf16 first loss to ``RESNET_BF16_TOL``). The reference's
+    initialisation (scale-1 projections, GroupNorm) gives logits of tens,
+    so the first loss is far above ln 10;
+16. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
     through the kernels (38 SSD launches, all of the bf16 tensor-core
     kernel in the profiled bf16 forward, and 6 flash) and through the
     plain paths, in bf16 and in float32: the float32 logits must agree
@@ -69,14 +96,14 @@ phases that each print their name and ``ok``:
     from them, in root mean square, than 1.5x the bf16 plain path (bf16
     rounding alone moves these random models' logits by several percent
     of max|logit|); a profiled device breakdown;
-14. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
+17. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
     path being the sequential scan, at the same B=4, S=2048;
-15. serve-recurrent: each family served at full width as in phase 8
+18. serve-recurrent: each family served at full width as in phase 8
     (undisturbed, then revoke + drain; migrated tokens equal), zamba2's
     decode cell running 6 decode-attention launches; zamba2 decode logits
     through the kernel and the plain attention must agree, in float32
     within 1e-3 and in bf16 as the forwards' gate says;
-16. timing: device time of each kernel, its plain version and, where
+19. timing: device time of each kernel, its plain version and, where
     one PyTorch call computes the same function,
     ``scaled_dot_product_attention`` (the library yardstick, which the
     port never calls) beside the kernel's bound and the share of it
@@ -100,6 +127,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -186,6 +214,22 @@ WKV_SHAPES = {
 FORWARD_BATCH = (4, 2048)
 TRAIN_ARGS = ["--full", "--arch", "starcoder2-3b", "--steps", "3",
               "--global-batch", "2", "--seq-len", "1024"]
+ELASTIC_ARGS = ["--full", "--arch", "starcoder2-3b", "--elastic",
+                "--slots", "2", "--initial-workers", "1", "--join-every",
+                "1", "--revoke-at", "3", "--global-batch", "2",
+                "--seq-len", "1024", "--steps", "4"]
+RESNET_ARGS = ["--arch", "resnet32-cifar10", "--full", "--elastic",
+               "--optimizer", "momentum", "--global-batch", "128",
+               "--slots", "4", "--initial-workers", "1", "--join-every", "5",
+               "--revoke-at", "17", "--steps", "20"]
+RESNET_ACTIVE = [1] * 5 + [2] * 5 + [3] * 5 + [4] * 2 + [3] * 3
+# where the training phases checkpoint, inside the checkout (gitignored)
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+# a run resumed from a checkpoint against the uninterrupted run: the same
+# weights and batches, only the backward's summation order may differ
+RESUME_TOL = 1e-4            # relative, per-step loss
+CKPT_PARAM_TOL = 1e-4        # absolute, every float32 master after 3 steps
+RESNET_BF16_TOL = 2e-2       # the run's bf16 first loss vs float64
 PARITY_ARCHS = ("starcoder2-3b", "gemma3-27b", "zamba2-1.2b", "rwkv6-7b")
 RECURRENT_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
 SERVE_ARGS = ["--no-reduced", "--requests", "8", "--max-batch", "4",
@@ -679,6 +723,343 @@ def decode_check(torch, model, params, gen, card_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Transient training: the elastic runtime, checkpoints, ResNet-32
+# ---------------------------------------------------------------------------
+
+def kernel_wrappers():
+    """The four kernel wrappers, whose ``launches`` count their launches."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6 import rwkv6_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"decode_attention": decode_attention,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            "rwkv6_scan": rwkv6_scan}
+
+
+def zero_counts():
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {n: w.launches for n, w in kernel_wrappers().items()}
+
+
+def host_room(path):
+    """Free disk under ``path`` and the host's memory, in GB."""
+    os.makedirs(path, exist_ok=True)
+    free = shutil.disk_usage(path).free / 1e9
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":")
+            if key in ("MemTotal", "MemAvailable"):
+                mem[key] = int(val.split()[0]) * 1024 / 1e9
+    return {"disk_free_GB": free, "mem_total_GB": mem.get("MemTotal"),
+            "mem_available_GB": mem.get("MemAvailable"),
+            "cpus": os.cpu_count()}
+
+
+def elastic_phase(torch, card_line):
+    """Full-width starcoder2-3b through ``launch.train --elastic`` (a join,
+    a warning with its fast save, a revocation), the fast save restored
+    onto the card and the rest of the run replayed from it, and the
+    restored run's weights evaluated through the flash kernel and through
+    the plain attention. Returns its numbers."""
+    from repro_torch.core import (CheckpointManager, ElasticRuntime,
+                                  RevocationEvent, SparseCluster)
+    from repro_torch.core.transient import GCE_WARNING_S
+    from repro_torch.data import make_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import make_schedule
+    from repro_torch.serving import with_impls
+    from repro_torch.train.trainer import evaluate_accuracy
+    from repro_torch.tree import tree_leaves
+    flash = kernel_wrappers()["flash_attention"]
+    room = host_room(CKPT_DIR)
+    print(f"  host: {room['disk_free_GB']:.1f} GB free under {CKPT_DIR}, "
+          f"{room['mem_total_GB']:.1f} GB memory "
+          f"({room['mem_available_GB']:.1f} GB available), {room['cpus']} "
+          f"CPUs")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    zero_counts()
+    args = launch_train.parse_args(ELASTIC_ARGS + ["--ckpt-dir", CKPT_DIR])
+    out, rt, state = launch_train.run(args)
+    model, tcfg, ds = rt.model, rt.tcfg, rt.dataset
+    print("  summary " + json.dumps(out))
+    losses, norms, active = out["losses"], out["grad_norms"], out["active"]
+    vocab = model.cfg.vocab_size
+    check(active == [1, 2, 2, 1], f"active counts {active}, expected "
+          "[1, 2, 2, 1]")
+    sched = make_schedule(tcfg.schedule)
+    want_lr = [tcfg.optimizer.lr * sched(i) * a
+               / tcfg.optimizer.base_workers for i, a in enumerate(active)]
+    check(all(abs(a - b) <= 1e-9 * b for a, b in zip(out["lr"], want_lr)),
+          f"LRs {out['lr']} do not follow the active counts ({want_lr})")
+    check(len(losses) == 4 and all(map(math.isfinite, losses + norms)),
+          "elastic training gave a non-finite loss or gradient norm")
+    check(math.log(vocab) <= losses[0] <= 12.3,
+          f"first loss {losses[0]:.4f} outside [ln {vocab} = "
+          f"{math.log(vocab):.2f}, 12.3]")
+    check(out["fast_saves"] == 1 and out["final_step"] == 4,
+          f"{out['fast_saves']} fast saves, final step {out['final_step']}")
+    save_s, save_b = out["fast_save_s"][0], out["fast_save_bytes"][0]
+    n_params = sum(t.numel() for _, t in tree_leaves(state.params))
+    print(f"  {n_params / 1e9:.3f} B float32 parameters, AdamW; steps "
+          + ", ".join(f"{t:.3f} s" for t in out["step_s"])
+          + f" (active {active}); peak device memory "
+          f"{out['peak_device_memory_bytes'] / 1e9:.2f} GB [{card_line}]")
+    print(f"  fast save at the warning (step 2): {save_b / 1e9:.2f} GB in "
+          f"{save_s:.2f} s, {save_b / save_s / 1e9:.2f} GB/s; the warning "
+          f"gives {GCE_WARNING_S:.0f} s ({save_s / GCE_WARNING_S:.2f} of "
+          f"it) [{card_line}]")
+    del state, rt
+    release(torch)
+
+    ck = CheckpointManager(CKPT_DIR)
+    t0 = time.monotonic()
+    step, restored, extra = ck.restore_latest("cuda")
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    check(step == 2 and restored.step == 2 and extra.get("slot") == 0,
+          f"restored step {step}, extra {extra}")
+    print(f"  restored the fast save onto the card in {restore_s:.2f} s "
+          f"({save_b / restore_s / 1e9:.2f} GB/s, checksum verified)")
+    cluster = SparseCluster(args.slots)          # membership at step 2
+    cluster.fill_and_activate(0, 0)
+    cluster.fill_and_activate(1, 1)
+    replay = ElasticRuntime(model, tcfg, ds, cluster)
+    replay.add_events([RevocationEvent(step=3, slot=0, kind="revoke")])
+    final = replay.run(restored, 2, start_step=2)
+    again = [r["loss"] for r in replay.metrics_log]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(again, losses[2:])]
+    print(f"  resumed steps 2, 3: losses " + ", ".join(
+        f"{x:.6f}" for x in again) + " / uninterrupted " + ", ".join(
+        f"{x:.6f}" for x in losses[2:]) + f"; relative differences "
+        + ", ".join(f"{d:.2e}" for d in diffs) + f" (tol {RESUME_TOL:g})")
+    check([r["active"] for r in replay.metrics_log] == [2, 1]
+          and final.step == 4 and max(diffs) <= RESUME_TOL,
+          "the run resumed from the fast save left the uninterrupted one")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    ev_batch = make_batch(model.cfg, 2, 1024, seed=99)
+    accs = {}
+    for impl in ("cuda", "torch"):
+        n0 = flash.launches
+        accs[impl] = evaluate_accuracy(with_impls(model, attn_impl=impl),
+                                       final.params, ev_batch)
+        check((flash.launches - n0)
+              == (model.cfg.num_layers if impl == "cuda" else 0),
+              f"evaluation with attn_impl={impl} launched the flash kernel "
+              f"{flash.launches - n0} times")
+    counts = read_counts()
+    print(f"  evaluate_accuracy of the resumed weights: flash "
+          f"{accs['cuda']:.6f}, plain {accs['torch']:.6f}; kernel launches "
+          f"in the phase {counts}")
+    check(counts == {"decode_attention": 0,
+                     "flash_attention": model.cfg.num_layers,
+                     "ssd_scan": 0, "rwkv6_scan": 0},
+          "the elastic path launched another set of kernels")
+    stats = {k: out[k] for k in ("losses", "grad_norms", "step_s", "active",
+                                 "lr", "peak_device_memory_bytes",
+                                 "fast_saves", "fast_save_s",
+                                 "fast_save_bytes", "wall_s")}
+    stats.update(host=room, params=n_params, restore_s=restore_s,
+                 fast_save_GBps=save_b / save_s / 1e9,
+                 resumed_losses=again, resume_rel_diff=diffs,
+                 eval_accuracy=accs, kernel_launches=counts)
+    del final, restored, replay, ev_batch
+    release(torch)
+    return stats
+
+
+
+def checkpoint_phase(torch, card_line):
+    """Reduced starcoder2-3b in float32 on the card: replicated saves every
+    step, a corrupted replica that restore fails over from, a torn write
+    (``fail_after_bytes``) that leaves the previous step restorable and no
+    ``.tmp_`` debris, and a resumed run against the uninterrupted one."""
+    import dataclasses as dc
+
+    from repro_torch.config import (OptimizerConfig, ScheduleConfig,
+                                    TrainConfig, get_config)
+    from repro_torch.core import CheckpointManager
+    from repro_torch.data import ShardedDataset
+    from repro_torch.models.builder import build_model
+    from repro_torch.train.step import init_state
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("starcoder2-3b", reduced=True).replace(
+        dtype="float32", attn_impl="torch")
+    model = build_model(cfg, "cuda")
+    tcfg = TrainConfig(
+        optimizer=OptimizerConfig(name="adamw", lr=1e-3),
+        schedule=ScheduleConfig(kind="constant", warmup_steps=1,
+                                total_steps=8),
+        checkpoint_every=1, seed=0)
+    ds = ShardedDataset(cfg, global_batch=4, seq_len=64, seed=0,
+                        device="cuda")
+    zero_counts()
+    ref = Trainer(model, dc.replace(tcfg, checkpoint_every=0), ds,
+                  log_every=1)
+    ref_state = ref.fit(init_state(model, tcfg), 6)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(CKPT_DIR, replicas=2)
+    tr = Trainer(model, tcfg, ds, mgr)
+    state = tr.fit(init_state(model, tcfg), 3)        # saves at 1, 2, 3
+    step3 = os.path.join(CKPT_DIR, "worker_0", "step_0000000003", "state.bin")
+    with open(step3, "r+b") as f:                    # one flipped bit
+        f.seek(1000)
+        byte = f.read(1)
+        f.seek(1000)
+        f.write(bytes([byte[0] ^ 1]))
+    check(mgr._load(os.path.dirname(step3), None) is None,
+          "the corrupted replica passed its checksum")
+    step, got, _ = mgr.restore_latest("cuda")
+    check(step == 3 and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves(got.params), tree_leaves(state.params))),
+          "restore did not fail over to the intact replica of step 3")
+    mgr.fail_after_bytes = 1 << 16                   # revoked mid-write
+    try:
+        tr.fit(state, 1)
+    except RuntimeError as e:
+        check("mid-write" in str(e), f"unexpected error {e}")
+    else:
+        check(False, "the torn write did not fail the save")
+    mgr.fail_after_bytes = None
+    debris = [d for r in os.listdir(CKPT_DIR)
+              for d in os.listdir(os.path.join(CKPT_DIR, r))
+              if d.startswith(".tmp_")]
+    check(not debris, f"the torn write left {debris}")
+    tr2 = Trainer(model, dc.replace(tcfg, checkpoint_every=0), ds, mgr,
+                  log_every=1)
+    resumed = tr2.init_or_restore()
+    check(resumed.step == 3, f"resumed at step {resumed.step}, not 3")
+    final = tr2.fit(resumed, 3)
+    diff = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+        tree_leaves(ref_state.params), tree_leaves(final.params)))
+    loss_diff = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(tr2.metrics_log, ref.metrics_log[3:]))
+    print(f"  replicas 2, saves every step; step 3's replica 0 corrupted: "
+          f"restore failed over to replica 1; step 4's write torn after "
+          f"{1 << 16} bytes: step 3 restored, no .tmp_ debris; resumed "
+          f"steps 3-5 vs uninterrupted: max|param diff| {diff:.2e} (tol "
+          f"{CKPT_PARAM_TOL:g}), loss {loss_diff:.2e} (tol {RESUME_TOL:g}) "
+          f"[{card_line}]")
+    check(diff <= CKPT_PARAM_TOL and loss_diff <= RESUME_TOL,
+          "the resumed run left the uninterrupted one")
+    check(read_counts() == dict.fromkeys(kernel_wrappers(), 0),
+          "reduced training launched a kernel")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return {"param_max_abs_diff": diff, "loss_rel_diff": loss_diff}
+
+
+def resnet_phase(torch, card_line):
+    """The paper's workload at its published size: ResNet-32 / CIFAR-10
+    through ``launch.train --elastic`` (momentum, global batch 128 over
+    four slots, a join every five steps, one warned revocation), its
+    steps/s, five more steps under torch.profiler for the device-busy
+    share, and the first step held to float64 on the CPU: the same
+    initial weights and slot-0 batch in float32 on the card and on the
+    CPU and in float64 on the CPU."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers as L
+    from repro_torch.models.builder import build_model
+    from repro_torch.train.step import loss_fn, value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    zero_counts()
+    args = launch_train.parse_args(RESNET_ARGS + ["--ckpt-dir", CKPT_DIR])
+    out, rt, state = launch_train.run(args)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print("  summary " + json.dumps(out))
+    losses, norms = out["losses"], out["grad_norms"]
+    check(out["active"] == RESNET_ACTIVE,
+          f"active counts {out['active']}, expected {RESNET_ACTIVE}")
+    check(len(losses) == args.steps and all(map(math.isfinite,
+                                                losses + norms)),
+          "ResNet-32 training gave a non-finite loss or gradient norm")
+    check(out["fast_saves"] == 1, f"{out['fast_saves']} fast saves")
+    step_s = out["step_s"]
+    steady = (len(step_s) - 1) / sum(step_s[1:])
+    print(f"  ResNet-32, global batch {args.global_batch} over {args.slots} "
+          f"slots (every slot's rows computed), bf16: {args.steps} steps, "
+          f"first {step_s[0]:.3f} s, then {steady:.2f} steps/s "
+          f"({steady * args.global_batch:.0f} images/s); fast save "
+          f"{out['fast_save_bytes'][0] / 1e6:.1f} MB in "
+          f"{out['fast_save_s'][0]:.3f} s [{card_line}]")
+    n_prof = 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        rt.run(state, n_prof, start_step=args.steps)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+    print(f"  {n_prof} profiled steps: device busy {busy * 1e3:.1f} ms of "
+          f"{wall * 1e3:.1f} ms wall, busy share {busy / wall:.3f}, "
+          f"{len(kern) / n_prof:.0f} device launches a step [{card_line}]")
+    counts = read_counts()
+    check(counts == dict.fromkeys(kernel_wrappers(), 0),
+          f"ResNet-32 launched a kernel: {counts}")
+
+    # the first step against float32 on the card and on the CPU, and the
+    # CPU in float64: the model's float32 gradients themselves sit ~1e-3
+    # (of a leaf's largest) from float64 (large logits at init), so the
+    # card's are held to twice the CPU's distance from float64
+    L.DTYPES.setdefault("float64", torch.float64)
+    w0 = rt.model.init(rt.model.generator(args.seed),
+                       dtype=torch.float32)         # init_state's draws
+    b0 = rt.dataset.shard_batch(0, 0, args.slots)   # slot 0, step 0
+    got = {}
+    for key, dev, dt in (("cuda", "cuda", torch.float32),
+                         ("cpu", "cpu", torch.float32),
+                         ("cpu64", "cpu", torch.float64)):
+        m = build_model(rt.model.cfg.replace(dtype=str(dt).split(".")[1]),
+                        dev)
+        p = tree_map(lambda t: t.to(device=dev, dtype=dt), w0)
+        b = {k: v.to(dev) for k, v in b0.items()}
+        grads, met = value_and_grad(lambda q: loss_fn(m, q, b, rt.tcfg), p)
+        got[key] = (float(met["loss"]), dict(tree_leaves(tree_map(
+            lambda t: t.double().cpu(), grads))))
+    ref = got["cpu64"][1]
+
+    def gerr(key):
+        return max(float((got[key][1][k] - g).abs().max() / g.abs().max())
+                   for k, g in ref.items())
+
+    loss64 = got["cpu64"][0]
+    err_card, err_cpu = gerr("cuda"), gerr("cpu")
+    first_rel = abs(losses[0] - loss64) / loss64
+    print(f"  first step: loss float32 card {got['cuda'][0]:.6f}, CPU "
+          f"{got['cpu'][0]:.6f}, float64 CPU {loss64:.6f}; gradients "
+          f"max|diff|/max|grad| from float64: card {err_card:.2e}, CPU "
+          f"float32 {err_cpu:.2e} (tol: card <= 2 x CPU); the run's bf16 "
+          f"first loss {losses[0]:.4f}, {first_rel:.2e} from float64 (tol "
+          f"{RESNET_BF16_TOL:g}); ln 10 = {math.log(10):.2f} (the "
+          f"reference's init gives large logits)")
+    check(abs(got["cuda"][0] - loss64) <= 1e-5 * loss64
+          and err_card <= 2 * err_cpu and first_rel <= RESNET_BF16_TOL,
+          "ResNet-32's first step disagrees with the float64 reference")
+    stats = {k: out[k] for k in ("losses", "grad_norms", "step_s", "active",
+                                 "lr", "fast_save_s", "fast_save_bytes",
+                                 "peak_device_memory_bytes", "wall_s")}
+    stats.update(steps_per_s=steady, profiled_wall_s=wall,
+                 profiled_busy_s=busy, busy_share=busy / wall,
+                 first_loss={k: v[0] for k, v in got.items()},
+                 grad_err_vs_float64={"cuda": err_card, "cpu": err_cpu})
+    del rt, state, w0, got, ref, prof, kern
+    release(torch)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1105,6 +1486,15 @@ def main() -> int:
                   f"{arch}: training on the card and on the CPU disagree")
             parity[arch] = worst_rel
 
+    with phase("elastic"):
+        elastic_stats = elastic_phase(torch, card_line)
+
+    with phase("checkpoint-resume"):
+        checkpoint_stats = checkpoint_phase(torch, card_line)
+
+    with phase("resnet32"):
+        resnet_stats = resnet_phase(torch, card_line)
+
     recurrent = {}                # arch -> (model, params, stats)
     for arch, ph in zip(RECURRENT_ARCHS, ("hybrid-forward", "rwkv-forward")):
         with phase(ph):
@@ -1351,6 +1741,9 @@ def main() -> int:
                           "wkv_timings": wkv_timings,
                           "serve": serve_stats, "profile": profile_stats,
                           "train": train_stats, "train_parity": parity,
+                          "elastic": elastic_stats,
+                          "checkpoint": checkpoint_stats,
+                          "resnet32": resnet_stats,
                           "recurrent": recurrent_stats,
                           "card": card_line}))
 

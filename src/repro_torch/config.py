@@ -1,5 +1,6 @@
 """Configuration for the PyTorch port: the fields of the dense, hybrid
-(zamba2) and recurrent (rwkv6) families, and the training configuration.
+(zamba2), recurrent (rwkv6) and resnet families, and the training
+configuration.
 
 A copy of the part of ``repro.config`` that the ported serving and
 training paths read, with the same field names and defaults, so that a
@@ -59,6 +60,11 @@ class ModelConfig:
 
     # --- RWKV6 ---------------------------------------------------------------
     rwkv_head_dim: int = 64
+
+    # --- resnet -------------------------------------------------------------
+    resnet_n: int = 0              # ResNet-(6n+2); n=5 -> ResNet-32
+    image_size: int = 32
+    num_classes: int = 10
 
     # --- numerics / implementation ------------------------------------------
     dtype: str = "bfloat16"

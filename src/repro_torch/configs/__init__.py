@@ -1,4 +1,4 @@
-"""The architectures the port serves (one module per arch).
+"""The architectures the port runs (one module per arch).
 
 Importing this package registers every config with ``repro_torch.config``.
 Module names are sanitized arch ids, as in ``repro.configs``.
@@ -7,6 +7,7 @@ from repro_torch.configs import (  # noqa: F401
     gemma3_27b,
     granite_20b,
     qwen2_5_14b,
+    resnet32_cifar10,
     rwkv6_7b,
     starcoder2_3b,
     zamba2_1p2b,

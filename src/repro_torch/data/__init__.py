@@ -1,2 +1,2 @@
-from repro_torch.data.pipeline import (ShardedDataset, lm_batch_keys,  # noqa: F401
-                                       make_batch)
+from repro_torch.data.pipeline import (Cifar10Like, ShardedDataset,  # noqa: F401
+                                       lm_batch_keys, make_batch)

@@ -1,16 +1,17 @@
 """Deterministic sharded data pipeline (counterpart of
-``repro.data.pipeline``), for the language-model families the port runs.
+``repro.data.pipeline``), for the language-model families and the
+ResNet the port runs, and the learnable ``Cifar10Like`` task.
 
 Batches are a pure function of ``(step, shard_id, num_shards, seed)``, so
 a restart from a checkpointed step replays the exact stream and a change
 of membership re-partitions it with no coordination (the paper's C3
 bound). The draws are numpy's, bit-identical to the reference's: the same
 ``SeedSequence``, the same calls in the same order. Only then do the
-arrays become ``torch.int64`` tensors on the device.
+arrays become tensors on the device: ``torch.int64`` tokens and labels,
+``float32`` images (B, H, W, 3).
 
-Not ported yet: the ResNet/CIFAR batches and ``Cifar10Like`` (ROADMAP.md
-Queue 1 item 2, with ResNet-32), and the multimodal and encoder-decoder
-batches (Queue 1 item 6).
+Not ported yet: the multimodal and encoder-decoder batches (Queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ from repro_torch.device import resolve_device
 # Families whose batches the port does not build yet, and the ROADMAP.md
 # Queue 1 item that ports each.
 _UNPORTED = {
-    "resnet": "Queue 1 item 2 (the paper's ResNet-32)",
     "vlm": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
     "encdec": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
 }
@@ -51,14 +51,23 @@ def lm_batch_keys(cfg: ModelConfig) -> Tuple[str, ...]:
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, *, seed: int = 0,
                step: int = 0, np_rng: Optional[np.random.Generator] = None,
                device="cuda") -> Dict[str, torch.Tensor]:
-    """One synthetic next-token batch: tokens (B, S) and labels (B, S),
-    the labels the tokens shifted by one, int64 on ``device``."""
+    """One synthetic batch with the input layout of ``cfg``: for the
+    language models tokens (B, S) and labels (B, S), the labels the tokens
+    shifted by one, int64; for resnet normal images (B, H, W, 3) float32
+    and class labels (B,) int64 (``seq_len`` unused). On ``device``."""
     if cfg.family in _UNPORTED:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family!r} batches are not ported to PyTorch "
             f"yet; see ROADMAP.md {_UNPORTED[cfg.family]}")
     device = resolve_device(device)
     rng = np_rng or _fold(seed, step)
+    if cfg.family == "resnet":
+        images = rng.normal(size=(batch, cfg.image_size, cfg.image_size, 3))
+        labels = rng.integers(0, cfg.num_classes, size=(batch,))
+        return {"images": torch.from_numpy(images).to(device=device,
+                                                      dtype=torch.float32),
+                "labels": torch.from_numpy(labels).to(device=device,
+                                                      dtype=torch.int64)}
     V = max(2, cfg.vocab_size)
     tokens = rng.integers(0, V, size=(batch, seq_len + 1))
     tokens = torch.from_numpy(tokens).to(device=device, dtype=torch.int64)
@@ -89,3 +98,57 @@ class ShardedDataset:
         rng = _fold(self.seed, step, 0, 1)
         return make_batch(self.cfg, self.global_batch, self.seq_len,
                           np_rng=rng, device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# A learnable CIFAR-10-like task (planted signal) for accuracy experiments
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Cifar10Like:
+    """32x32x3 images whose class plants a low-rank directional signal
+    (a copy of the reference's, drawn with the same numpy calls, so one
+    seed gives the same images in both packages).
+
+    Small models reach high accuracy quickly, and *ordering/staleness of
+    updates changes the outcome*. Deterministic in (seed, step); batches
+    land on ``device``.
+    """
+    num_classes: int = 10
+    image_size: int = 32
+    signal: float = 3.0
+    seed: int = 0
+    # per-class channel-mean (color) shift: a random pixel-space direction
+    # has ~zero spatial mean, so global-average-pool architectures (the
+    # resnet family) never see it; the color component survives pooling
+    color_signal: float = 0.0
+    device: str = "cuda"
+
+    def _dirs(self) -> np.ndarray:
+        rng = np.random.default_rng(self.seed + 1234)
+        d = rng.normal(size=(self.num_classes,
+                             self.image_size * self.image_size * 3))
+        return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+    def _colors(self) -> np.ndarray:
+        rng = np.random.default_rng(self.seed + 4321)
+        c = rng.normal(size=(self.num_classes, 3))
+        return (c / np.linalg.norm(c, axis=1, keepdims=True)).astype(np.float32)
+
+    def batch(self, step: int, batch: int, *, shard: int = 0,
+              num_shards: int = 1) -> Dict[str, torch.Tensor]:
+        rng = _fold(self.seed, step, shard, num_shards)
+        y = rng.integers(0, self.num_classes, size=(batch,))
+        x = rng.normal(size=(batch, self.image_size * self.image_size * 3)
+                       ).astype(np.float32)
+        x = x + self.signal * self._dirs()[y]
+        x = x.reshape(batch, self.image_size, self.image_size, 3)
+        if self.color_signal:
+            x = x + self.color_signal * self._colors()[y][:, None, None, :]
+        device = resolve_device(self.device)
+        return {"images": torch.from_numpy(x).to(device),
+                "labels": torch.from_numpy(y).to(device=device,
+                                                 dtype=torch.int64)}
+
+    def eval_batch(self, batch: int = 512) -> Dict[str, torch.Tensor]:
+        return self.batch(10_000_019, batch)   # held-out step namespace

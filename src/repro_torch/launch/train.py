@@ -1,13 +1,19 @@
 """Training entry point: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Single-process training on a static cluster: the deterministic data
-pipeline, the float32-master training step and the ``Trainer`` loop, on
-the card by default (``--device cpu`` runs on the CPU). The flags are the
+Single-process end-to-end training with the transient runtime wired in:
+the sharded deterministic data pipeline, masked elastic membership
+(sparse mapping, ``--elastic``) with the adaptive LR, master-less
+checkpointing (``--ckpt-dir``) and a revocation trace, either a schedule
+(``--join-every``, ``--revoke-at``) or Monte-Carlo lifetimes drawn from
+the paper-calibrated distributions (``--monte-carlo``). On the card by
+default (``--device cpu`` runs on the CPU). The flags are the
 reference's (``repro.launch.train``), ``--reduced`` on by default and
 ``--full`` for the published widths; the JSON summary has its keys
 (``loss_first``, ``loss_last``, ``wall_s``, ``final_step``, ...) plus the
-device, the attention implementation that trained, the per-step losses,
-gradient norms and wall times, and the peak device memory.
+device, the implementations that trained, the per-step losses, gradient
+norms and wall times, and the peak device memory; with ``--elastic``
+also each step's active workers and LR and the fast saves' count,
+seconds and bytes.
 
 None of the port's kernels has a backward (the reference's Pallas
 kernels have none either), so the differentiated forward runs the plain
@@ -17,12 +23,9 @@ scan), on every device; the summary says so. Full-width training of
 rwkv6-7b does not fit one card (about 120 GB of float32 masters and
 moments).
 
-Not ported yet: ``--elastic`` (ROADMAP.md Queue 1 item 2,
-``core/elastic.py``), ``--gym`` (Queue 1 item 2, the gym's execute path),
-``--ckpt-dir`` (Queue 1 item 2, ``core/checkpoint.py``) and the
-``--events``/``--profile`` recorder flags (Queue 1 item 4). The
-elastic-only flags parse and are unused, as in the reference without
-``--elastic``.
+Not ported yet: ``--gym`` (ROADMAP.md Queue 1 item 2e, the gym's execute
+path) and the ``--events``/``--profile`` recorder flags (Queue 1
+item 4).
 """
 from __future__ import annotations
 
@@ -31,20 +34,49 @@ import json
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config import (OptimizerConfig, ScheduleConfig, TrainConfig,
                                 get_config, list_archs)
+from repro_torch.core import (CheckpointManager, ElasticRuntime,
+                              RevocationEvent, SparseCluster)
+from repro_torch.core.transient import LIFETIMES
 from repro_torch.data.pipeline import ShardedDataset
 from repro_torch.models.builder import build_model
-from repro_torch.train.step import TrainState
+from repro_torch.train.step import TrainState, init_state
 from repro_torch.train.trainer import Trainer
 
 _NOT_PORTED = {
-    "elastic": "ROADMAP.md Queue 1 item 2 (core/elastic.py)",
-    "gym": "ROADMAP.md Queue 1 item 2 (the gym's execute path)",
-    "ckpt_dir": "ROADMAP.md Queue 1 item 2 (core/checkpoint.py)",
+    "gym": "ROADMAP.md Queue 1 item 2e (the gym's execute path)",
 }
+
+
+def build_trace(args, rng: np.random.Generator) -> List[RevocationEvent]:
+    """Revocation/join events: explicit schedule or sampled lifetimes."""
+    events = []
+    if args.join_every:
+        for i in range(1, args.slots):
+            events.append(RevocationEvent(step=i * args.join_every, slot=i,
+                                          kind="join"))
+    if args.revoke_at is not None:
+        events.append(RevocationEvent(step=max(0, args.revoke_at - 1),
+                                      slot=0, kind="warn"))
+        events.append(RevocationEvent(step=args.revoke_at, slot=0,
+                                      kind="revoke"))
+    if args.monte_carlo:
+        # sample a lifetime per initially-active slot; convert to steps via
+        # the configured steps/sec so traces match the paper's timescales
+        life = LIFETIMES[args.server_kind]
+        for s in range(args.initial_workers):
+            t_s = life.sample(rng, 1)[0]
+            step = int(t_s * args.steps_per_sec)
+            if step < args.steps:
+                events.append(RevocationEvent(step=max(0, step - 1), slot=s,
+                                              kind="warn"))
+                events.append(RevocationEvent(step=step, slot=s,
+                                              kind="revoke"))
+    return events
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -89,9 +121,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace
-        ) -> Tuple[Dict[str, Any], Trainer, TrainState]:
-    """Train as the flags say; returns (summary, trainer, final state)."""
+def run(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any, TrainState]:
+    """Train as the flags say; returns (summary, the ``Trainer`` or, with
+    ``--elastic``, the ``ElasticRuntime``, final state)."""
     for flag, where in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
@@ -113,6 +145,7 @@ def run(args: argparse.Namespace
     ds = ShardedDataset(cfg, global_batch=args.global_batch,
                         seq_len=args.seq_len, seed=args.seed,
                         device=str(dev))
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -127,21 +160,40 @@ def run(args: argparse.Namespace
         clock[0] = now
 
     t0 = time.monotonic()
-    trainer = Trainer(model, tcfg, ds)
-    state = trainer.init_or_restore()
-    clock[0] = time.monotonic()
-    state = trainer.fit(state, args.steps, on_step=on_step)
+    extra: Dict[str, Any] = {}
+    if args.elastic:
+        cluster = SparseCluster(max_slots=args.slots)
+        for s in range(args.initial_workers):
+            cluster.fill_and_activate(s, 0, kind=args.server_kind)
+        loop = ElasticRuntime(model, tcfg, ds, cluster, ckpt)
+        loop.add_events(build_trace(args, np.random.default_rng(args.seed)))
+        state = init_state(model, tcfg)
+        state = loop.run(state, args.steps, on_step=on_step)
+        log = loop.metrics_log
+        extra = {
+            "slots": args.slots, "active": [r["active"] for r in log],
+            "lr": [r["lr"] for r in log], "fast_saves": loop.fast_saves,
+            "fast_save_s": [r["seconds"] for r in loop.fast_save_log],
+            "fast_save_bytes": [r["bytes"] for r in loop.fast_save_log],
+        }
+        step_s = loop.step_seconds
+    else:
+        loop = Trainer(model, tcfg, ds, ckpt)
+        state = loop.init_or_restore()
+        clock[0] = time.monotonic()
+        state = loop.fit(state, args.steps, on_step=on_step)
+        log = loop.metrics_log
+        step_s = [r["step_s"] for r in per_step]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.monotonic() - t0
-    log = trainer.metrics_log
     first, last = log[0], log[-1]
     out = {
         "arch": args.arch, "reduced": args.reduced, "steps": args.steps,
         "wall_s": round(wall, 2),
         "loss_first": round(float(first["loss"]), 4),
         "loss_last": round(float(last["loss"]), 4),
-        "elastic": False,
+        "elastic": args.elastic,
         "final_step": int(state.step),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else dev.type),
@@ -152,11 +204,12 @@ def run(args: argparse.Namespace
         "global_batch": args.global_batch, "seq_len": args.seq_len,
         "losses": [r["loss"] for r in per_step],
         "grad_norms": [r["grad_norm"] for r in per_step],
-        "step_s": [r["step_s"] for r in per_step],
+        "step_s": step_s,
         "peak_device_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else None),
+        **extra,
     }
-    return out, trainer, state
+    return out, loop, state
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:

@@ -1,6 +1,9 @@
 """Model builder (counterpart of ``repro.models.builder``): a uniform
 callable surface over the ported stacks (init, apply, decode), bound to
-one device.
+one device. The resnet family (``models/resnet.py``) has init and apply
+and no decode cache, as in the reference (``init_cache`` and ``decode``
+raise for it); every other ported family is a ``models/transformer.py``
+stack.
 """
 from __future__ import annotations
 
@@ -11,10 +14,17 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import resnet, transformer
 from repro_torch.tree import tree_map
 
 Tree = Dict[str, Any]
+
+
+def init_params(cfg: ModelConfig, generator, device,
+                dtype: Optional[torch.dtype] = None) -> Tree:
+    """The family's ``init_params`` (``None`` generator on ``meta``)."""
+    stack = resnet if cfg.family == "resnet" else transformer
+    return stack.init_params(cfg, generator, device, dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,13 +37,14 @@ class Model:
         """Parameters drawn from ``generator`` (which lives on
         ``self.device``), stored in ``cfg.dtype`` or, for training's
         masters, in ``dtype=torch.float32``."""
-        return transformer.init_params(self.cfg, generator, self.device,
-                                       dtype)
+        return init_params(self.cfg, generator, self.device, dtype)
 
     def apply(self, params: Tree, batch: Dict[str, torch.Tensor],
               remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward: (logits (B, S, V), aux loss)."""
-        return transformer.forward(params, self.cfg, batch, remat=remat)
+        """Full forward: (logits (B, S, V), or (B, classes) for resnet,
+        aux loss)."""
+        stack = resnet if self.cfg.family == "resnet" else transformer
+        return stack.forward(params, self.cfg, batch, remat=remat)
 
     def init_cache(self, batch: int, max_len: int,
                    device: Optional[torch.device] = None) -> Tree:
@@ -75,5 +86,6 @@ def cache_batch_axes(model: Model, max_len: int = 8) -> Tree:
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    transformer.require_ported(cfg)
+    if cfg.family != "resnet":
+        transformer.require_ported(cfg)
     return Model(cfg=cfg, device=resolve_device(device))

@@ -45,11 +45,14 @@ _UNPORTED = {
     "moe": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
     "vlm": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
     "encdec": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
-    "resnet": "Queue 1 item 2 (training, with the paper's ResNet-32)",
 }
 
 
 def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family == "resnet":
+        raise ValueError(f"{cfg.name}: the resnet family has no transformer "
+                         "stack; models/resnet.py runs it (build_model "
+                         "dispatches to it)")
     if cfg.family not in PORTED:
         where = _UNPORTED.get(cfg.family, "no ROADMAP item")
         raise NotImplementedError(

@@ -90,13 +90,50 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
             tcfg: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, {loss, aux}). The dense family's aux (MoE router)
-    loss is zero, so the total is the cross-entropy."""
+    """(total loss, {loss, aux}). The ported families' aux (MoE router)
+    loss is zero, so the total is the cross-entropy: per token, or per
+    image for resnet."""
     cfg = model.cfg
     logits, aux = model.apply(params, batch, remat=tcfg.remat != "none")
-    w = _token_weights(cfg, batch, logits.shape[1])
-    loss = cross_entropy(logits, batch["labels"], w)
+    if cfg.family == "resnet":
+        loss = cross_entropy(logits, batch["labels"])
+    else:
+        w = _token_weights(cfg, batch, logits.shape[1])
+        loss = cross_entropy(logits, batch["labels"], w)
     return loss, {"loss": loss, "aux": aux}
+
+
+def value_and_grad(loss: Callable[[Tree], Tuple[torch.Tensor, Dict]],
+                   params: Tree) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+    """(gradients of ``loss(params)[0]`` as a tree like ``params``, the
+    detached metrics ``loss`` returns), through leaves that share the
+    masters' storage. Each gradient is contiguous, as the optimizers'
+    chunked in-place update reads it (a conv weight's gradient may come
+    back in another memory format)."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        total, metrics = loss(leaves)
+        grads = torch.autograd.grad(
+            total, [t for _, t in tree_leaves(leaves)])
+    it = iter(grads)
+    return (tree_map(lambda _: next(it).contiguous(), leaves),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def apply_gradients(state: TrainState, grads: Tree, metrics: Dict,
+                    lr_scale: float, tcfg: TrainConfig, opt, sched
+                    ) -> Tuple[TrainState, Dict[str, Any]]:
+    """Clip, LR schedule x ``lr_scale``, optimizer update of the masters
+    IN PLACE; returns the next state and ``metrics`` with ``grad_norm``
+    (a device scalar) and ``lr`` (a float)."""
+    if tcfg.optimizer.grad_clip > 0:
+        grads, gnorm = clip_by_global_norm(grads, tcfg.optimizer.grad_clip)
+    else:
+        gnorm = global_norm(grads)
+    lr = tcfg.optimizer.lr * sched(state.step) * float(lr_scale)
+    new_opt = opt.update(grads, state.opt, state.params, lr)
+    return (TrainState(params=state.params, opt=new_opt, step=state.step + 1),
+            dict(metrics, grad_norm=gnorm, lr=lr))
 
 
 # ---------------------------------------------------------------------------
@@ -115,19 +152,11 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
         raise NotImplementedError(f"grad_dtype={tcfg.grad_dtype!r}: {_SPMD}")
     opt = make_optimizer(tcfg.optimizer)
     sched = make_schedule(tcfg.schedule)
-    base_lr = tcfg.optimizer.lr
 
     def grads_of(params: Tree, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
-        # leaves that share the masters' storage and track gradients
-        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            total, metrics = loss_fn(model, leaves, batch, tcfg)
-            grads = torch.autograd.grad(
-                total, [t for _, t in tree_leaves(leaves)])
-        it = iter(grads)
-        return (tree_map(lambda _: next(it), leaves),
-                {k: v.detach() for k, v in metrics.items()})
+        return value_and_grad(lambda p: loss_fn(model, p, batch, tcfg),
+                              params)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr_scale: float = 1.0
@@ -149,17 +178,8 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
                                for key, v in m.items()}
         else:
             grads, metrics = grads_of(state.params, batch)
-
-        if tcfg.optimizer.grad_clip > 0:
-            grads, gnorm = clip_by_global_norm(grads, tcfg.optimizer.grad_clip)
-        else:
-            gnorm = global_norm(grads)
-        lr = base_lr * sched(state.step) * float(lr_scale)
-        new_opt = opt.update(grads, state.opt, state.params, lr)
-        del grads
-        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
-        return TrainState(params=state.params, opt=new_opt,
-                          step=state.step + 1), metrics
+        return apply_gradients(state, grads, metrics, lr_scale, tcfg, opt,
+                               sched)
 
     return train_step
 
