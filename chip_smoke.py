@@ -9,7 +9,8 @@ flash attention, the Mamba-2 SSD scan and the RWKV-6 WKV recurrence):
 serving starcoder2-3b (30 layers, d_model 3072, 24 heads / 2 KV heads,
 bf16), its full-sequence forward, its training step and its training on
 transient servers (elastic slots, the warning's fast save, restore);
-the paper's ResNet-32 trained elastically; the full-width
+the paper's ResNet-32 trained elastically and through the trace-driven
+gym; the full-width
 forwards of zamba2-1.2b (38 Mamba-2 layers, d_model 2048, 64 SSM heads x
 P 64, N 64, a shared attention block every 6 layers) and rwkv6-7b (32
 layers, d_model 4096, 64 heads x 64, d_ff 14336); and serving both. In
@@ -88,7 +89,20 @@ phases that each print their name and ``ok``:
     the run's bf16 first loss to ``RESNET_BF16_TOL``). The reference's
     initialisation (scale-1 projections, GroupNorm) gives logits of tens,
     so the first loss is far above ln 10;
-16. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
+16. gym: ``launch.train --gym`` (through its ``run``) of the volatile
+    trace with the greedy policy over 4 workers, training the paper's
+    ResNet-32 at its published size for 64 steps on the mixed K80/P100
+    plan (the hetero allocator) and replaying it through the async PS
+    (384 pushes): the plan completes, the executed steps are the
+    schedule's, the loss falls, every push is counted and the mean
+    staleness is above 0.5; wall, per-step, plan and async-PS times.
+    Then a revocation of the intensity-sweep trace whose warning
+    fast-saves a checkpoint that ``restore_latest`` finds, and the
+    execute paths at reduced size in float32 on the card against the
+    CPU from the same weights: the final loss within ``GYM_LOSS_TOL``,
+    equal staleness histograms, the PS params within ``GYM_PS_TOL``
+    after ``GYM_PS_UPDATES`` pushes;
+17. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
     through the kernels (38 SSD launches, all of the bf16 tensor-core
     kernel in the profiled bf16 forward, and 6 flash) and through the
     plain paths, in bf16 and in float32: the float32 logits must agree
@@ -96,14 +110,14 @@ phases that each print their name and ``ok``:
     from them, in root mean square, than 1.5x the bf16 plain path (bf16
     rounding alone moves these random models' logits by several percent
     of max|logit|); a profiled device breakdown;
-17. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
+18. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
     path being the sequential scan, at the same B=4, S=2048;
-18. serve-recurrent: each family served at full width as in phase 8
+19. serve-recurrent: each family served at full width as in phase 8
     (undisturbed, then revoke + drain; migrated tokens equal), zamba2's
     decode cell running 6 decode-attention launches; zamba2 decode logits
     through the kernel and the plain attention must agree, in float32
     within 1e-3 and in bf16 as the forwards' gate says;
-19. timing: device time of each kernel, its plain version and, where
+20. timing: device time of each kernel, its plain version and, where
     one PyTorch call computes the same function,
     ``scaled_dot_product_attention`` (the library yardstick, which the
     port never calls) beside the kernel's bound and the share of it
@@ -223,6 +237,20 @@ RESNET_ARGS = ["--arch", "resnet32-cifar10", "--full", "--elastic",
                "--slots", "4", "--initial-workers", "1", "--join-every", "5",
                "--revoke-at", "17", "--steps", "20"]
 RESNET_ACTIVE = [1] * 5 + [2] * 5 + [3] * 5 + [4] * 2 + [3] * 3
+# the gym: a mixed K80/P100 plan of the volatile trace by the greedy
+# policy, trained at full width and replayed through the async PS
+GYM_ARGS = ["--gym", "--trace", "volatile", "--policy", "greedy",
+            "--initial-workers", "4", "--arch", "resnet32-cifar10", "--full",
+            "--steps", "64", "--gym-async-updates", "384"]
+GYM_PARITY_STEPS = 8          # reduced ResNet-8, float32, card vs CPU
+GYM_LOSS_TOL = 1e-4           # relative, the final loss
+# the async PS, card vs CPU: params within GYM_PS_TOL (max|diff| /
+# max|param|) after GYM_PS_UPDATES pushes. Four stale workers at the
+# gym's LR amplify rounding differences push by push (after the full
+# run's 384 pushes card and CPU params lie ~1e-2 apart), so the 384-push
+# run is held to equal histograms and its params' distance only printed
+GYM_PS_UPDATES = 64
+GYM_PS_TOL = 1e-4
 # where the training phases checkpoint, inside the checkout (gitignored)
 CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 # a run resumed from a checkpoint against the uninterrupted run: the same
@@ -1060,6 +1088,167 @@ def resnet_phase(torch, card_line):
     return stats
 
 
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Set attributes of ``module`` for the block, then restore them."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def gym_phase(torch, card_line):
+    """The trace-driven gym on the card: ``launch.train --gym`` at full
+    width (a mixed K80/P100 plan, so the hetero allocator runs, and the
+    async PS), a revocation whose warning fast-saves, and the execute
+    paths on the card against the CPU from the same float32 weights."""
+    from repro_torch.config import get_config
+    from repro_torch.core import CheckpointManager
+    from repro_torch.core.policy import (GreedyCheapest, PolicyDecision,
+                                         StaticPolicy)
+    from repro_torch.gym import gym as G
+    from repro_torch.gym import (TransientGym, execute_async_ps,
+                                 execute_masked, intensity_sweep_traces,
+                                 training_schedule)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.builder import build_model
+    from repro_torch.traces import load_trace
+    from repro_torch.train.step import init_state
+    from repro_torch.tree import tree_leaves, tree_map
+
+    stats = {}
+    # 1. the entry point, ResNet-32 at its published size
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    zero_counts()
+    args = launch_train.parse_args(GYM_ARGS + ["--ckpt-dir", CKPT_DIR])
+    out, ledger, _ = launch_train.run(args)
+    counts = read_counts()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    short = {k: v for k, v in out.items() if k not in ("losses", "step_s")}
+    print("  summary " + json.dumps(short))
+    full = get_config(args.arch, reduced=False)
+    check(not out["reduced"] and full.resnet_n == 5
+          and full.image_size == 32, "the gym did not train ResNet-32")
+    kinds = sorted({e.server_kind for e in ledger.schedule})
+    check(len(kinds) > 1, f"the plan is not a mixed fleet: {kinds}")
+    want_steps = training_schedule(ledger, args.steps).executed_steps
+    losses = out["losses"]
+    pushes = sum(ledger.staleness_hist.values())
+    want_pushes = (args.gym_async_updates if ledger.completed else
+                   int(ledger.vsteps_done / ledger.total_steps
+                       * args.gym_async_updates))
+    check(out["completed"], f"the plan did not complete: {out['failure']}")
+    check(out["executed_steps"] == want_steps == len(losses),
+          f"executed {out['executed_steps']} steps ({len(losses)} losses), "
+          f"the schedule says {want_steps}")
+    check(all(map(math.isfinite, losses)) and out["loss_last"]
+          < out["loss_first"], f"losses {losses[0]} -> {losses[-1]}")
+    check(pushes == want_pushes, f"{pushes} async pushes, the ledger's "
+          f"progress implies {want_pushes}")
+    check(out["mean_staleness"] > 0.5,
+          f"mean staleness {out['mean_staleness']}: the async PS is not "
+          f"stale")
+    check(counts == dict.fromkeys(kernel_wrappers(), 0),
+          f"the gym's ResNet-32 launched a kernel: {counts}")
+    step_s = out["step_s"]
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(f"  gym, ResNet-32 full width (bf16), {len(kinds)} kinds {kinds}, "
+          f"{out['n_events']} membership events, {out['revocations']} "
+          f"revocations: wall {out['wall_s']:.2f} s; plan "
+          f"{out['plan_s']:.3f} s; {len(losses)} steps in "
+          f"{out['train_s']:.2f} s (first {step_s[0]:.3f} s, then median "
+          f"{steady * 1e3:.1f} ms a step); loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f}; accuracy {out['accuracy']:.3f}; async PS "
+          f"{pushes} pushes in {out['async_s']:.2f} s = "
+          f"{out['async_pushes_per_s']:.1f} pushes/s, mean staleness "
+          f"{out['mean_staleness']:.3f} {out['staleness_hist']} "
+          f"[{card_line}]")
+    stats["cli"] = dict(short, steady_step_s=steady,
+                        first_step_s=step_s[0], kinds=kinds)
+
+    # 2. a revocation inside the run: the warning fast-saves
+    ck = CheckpointManager(CKPT_DIR)
+    trace = intensity_sweep_traces(0)[1]
+    t0 = time.monotonic()
+    led = TransientGym(trace, StaticPolicy(PolicyDecision("K80", 4)),
+                       seed=0).run(arch="resnet32-cifar10", train_steps=32,
+                                   ckpt=ck)
+    got = ck.restore_latest("cuda")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    reason = got[2].get("reason") if got is not None else None
+    print(f"  {trace.name}, static 4 x K80, reduced: {led.revocations} "
+          f"revocations, {led.fast_saves} fast saves, {led.executed_steps} "
+          f"steps, restore_latest reason {reason!r} "
+          f"({time.monotonic() - t0:.2f} s)")
+    check(led.revocations >= 1 and led.fast_saves >= 1
+          and reason == "revocation_warning",
+          "no revocation warning fast-saved a restorable checkpoint")
+    stats["fast_save"] = {"revocations": led.revocations,
+                          "fast_saves": led.fast_saves,
+                          "executed_steps": led.executed_steps}
+    del got
+
+    # 3. the card against the CPU, reduced, float32, the same weights
+    def fp32(arch, reduced=False):
+        return get_config(arch, reduced=reduced).replace(dtype="float32")
+
+    host = build_model(fp32(args.arch, True), "cpu")
+    w0 = host.init(host.generator(0), dtype=torch.float32)
+
+    def shared_init(model, tcfg, generator=None, params=None):
+        return init_state(model, tcfg, params=tree_map(
+            lambda t: t.to(model.device, copy=True), w0))
+
+    def ps_err(x, y):
+        big = max(float(t.abs().max()) for _, t in tree_leaves(y))
+        return max(float((x[k].cpu() - t).abs().max())
+                   for k, t in y.items()) / big
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        plan = TransientGym(load_trace("volatile"),
+                            GreedyCheapest(n_workers=4), refill=True,
+                            seed=0).plan()
+        with patched(G, get_config=fp32, init_state=shared_init):
+            execute_masked(plan, arch=args.arch,
+                           train_steps=GYM_PARITY_STEPS, device=dev)
+        runs = []
+        for updates in (GYM_PS_UPDATES, args.gym_async_updates):
+            execute_async_ps(plan, updates=updates, device=dev)
+            runs.append((dict(plan.staleness_hist), plan.ps_params))
+        res[dev] = plan, runs
+    (a, a_ps), (b, b_ps) = res["cuda"], res["cpu"]
+    loss_rel = abs(a.final_loss - b.final_loss) / abs(b.final_loss)
+    errs = [ps_err(x[1], y[1]) for x, y in zip(a_ps, b_ps)]
+    hists_equal = all(x[0] == y[0] for x, y in zip(a_ps, b_ps))
+    print(f"  card vs CPU, reduced ResNet-8 float32, {GYM_PARITY_STEPS} "
+          f"steps: final loss {a.final_loss:.6f} / {b.final_loss:.6f} "
+          f"(rel {loss_rel:.2e}, tol {GYM_LOSS_TOL:g}), accuracy "
+          f"{a.accuracy:.4f} / {b.accuracy:.4f}; async PS histograms "
+          f"{'equal' if hists_equal else 'DIFFER'} at {GYM_PS_UPDATES} and "
+          f"{args.gym_async_updates} pushes, params max|diff|/max|param| "
+          f"{errs[0]:.2e} (tol {GYM_PS_TOL:g}) and {errs[1]:.2e} (not "
+          f"gated: rounding amplified)")
+    check(a.executed_steps == b.executed_steps == GYM_PARITY_STEPS
+          and a.fast_saves == b.fast_saves and loss_rel <= GYM_LOSS_TOL,
+          "the masked execution on the card disagrees with the CPU")
+    check(hists_equal and errs[0] <= GYM_PS_TOL,
+          "the async PS on the card disagrees with the CPU")
+    stats["parity"] = {"final_loss": [a.final_loss, b.final_loss],
+                       "loss_rel": loss_rel,
+                       "accuracy": [a.accuracy, b.accuracy],
+                       "staleness_hist": a_ps[-1][0],
+                       "ps_param_err": dict(zip(
+                           (GYM_PS_UPDATES, args.gym_async_updates), errs))}
+    del ledger, led, res, a, b, a_ps, b_ps, w0, host
+    release(torch)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1495,6 +1684,9 @@ def main() -> int:
     with phase("resnet32"):
         resnet_stats = resnet_phase(torch, card_line)
 
+    with phase("gym"):
+        gym_stats = gym_phase(torch, card_line)
+
     recurrent = {}                # arch -> (model, params, stats)
     for arch, ph in zip(RECURRENT_ARCHS, ("hybrid-forward", "rwkv-forward")):
         with phase(ph):
@@ -1743,7 +1935,7 @@ def main() -> int:
                           "train": train_stats, "train_parity": parity,
                           "elastic": elastic_stats,
                           "checkpoint": checkpoint_stats,
-                          "resnet32": resnet_stats,
+                          "resnet32": resnet_stats, "gym": gym_stats,
                           "recurrent": recurrent_stats,
                           "card": card_line}))
 

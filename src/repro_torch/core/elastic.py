@@ -26,9 +26,11 @@ remesh path). Revocation flow (GCE gives a 30 s warning):
                   functions of (step, shard, num_shards)   [data/pipeline.py]
 
 The steps differentiate the plain paths and update the float32 masters
-in place (``train/step.py``), as ``make_train_step`` does. Not ported
-yet: the ``obs`` recorder (ROADMAP.md Queue 1 item 4); a ``recorder``
-raises.
+in place (``train/step.py``), as ``make_train_step`` does. An
+``obs.Recorder`` observes the run as the reference's does: warn, revoke
+and join instants and step spans on the step-index sim clock, and the
+``fast_saves_total``, ``revocations_total``, ``steps_total``,
+``step_latency_ms``, ``workers`` and ``examples_per_step`` series.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.core.cluster import SparseCluster
 from repro_torch.models.builder import Model
@@ -48,8 +51,6 @@ from repro_torch.train.step import (TrainState, _token_weights,
                                     value_and_grad)
 
 Tree = Dict[str, Any]
-RECORDER = ("the obs recorder is not ported to PyTorch yet; see ROADMAP.md "
-            "Queue 1 item 4")
 
 
 # ---------------------------------------------------------------------------
@@ -222,9 +223,7 @@ class ElasticRuntime:
 
     def __init__(self, model: Model, tcfg: TrainConfig, dataset,
                  cluster: SparseCluster, ckpt=None, allocator=None,
-                 recorder: Optional[Any] = None):
-        if recorder is not None:
-            raise NotImplementedError(RECORDER)
+                 recorder: Optional[obs.Recorder] = None):
         self.model = model
         self.tcfg = tcfg
         self.dataset = dataset
@@ -233,6 +232,7 @@ class ElasticRuntime:
         # allocator (hetero.DynamicBatchAllocator): per-slot example counts
         # re-solved on membership bumps; None = homogeneous masked mode
         self.allocator = allocator
+        self.rec = recorder if recorder is not None else obs.NULL
         self.mode = "masked" if allocator is None else "hetero"
         if allocator is None:
             self.step_fn = make_masked_train_step(model, tcfg)
@@ -249,8 +249,15 @@ class ElasticRuntime:
             self.events.setdefault(e.step, []).append(e)
 
     def _apply_events(self, state: TrainState, step: int) -> None:
+        rec = self.rec
         for e in self.events.get(step, ()):
+            # training's sim clock is the step index: membership events
+            # share an axis with the EV_STEP spans in the timeline
             if e.kind == "warn":
+                rec.instant(obs.EV_REVOKE_WARN, cat=obs.CAT_TRAIN,
+                            track=f"slot{e.slot}", sim_t=float(step),
+                            kind=e.server_kind, region=e.region,
+                            fast_save=self.ckpt is not None)
                 if self.ckpt is not None:       # 30 s window: one fsync'd copy
                     self.ckpt.save(step, state, fast=True,
                                    extra={"reason": "revocation_warning",
@@ -258,9 +265,18 @@ class ElasticRuntime:
                     self.fast_saves += 1
                     self.fast_save_log.append(
                         {"slot": e.slot, **self.ckpt.last_save})
+                    rec.metrics.counter("fast_saves_total").inc()
             elif e.kind == "revoke":
+                rec.instant(obs.EV_REVOKE_FIRE, cat=obs.CAT_TRAIN,
+                            track=f"slot{e.slot}", sim_t=float(step),
+                            kind=e.server_kind, region=e.region)
+                rec.metrics.counter("revocations_total", kind=e.server_kind,
+                                    region=e.region).inc()
                 self.cluster.revoke(e.slot, step)
             elif e.kind == "join":
+                rec.instant(obs.EV_SLOT_JOIN, cat=obs.CAT_TRAIN,
+                            track=f"slot{e.slot}", sim_t=float(step),
+                            kind=e.server_kind, region=e.region)
                 self.cluster.fill_and_activate(e.slot, step,
                                                kind=e.server_kind,
                                                region=e.region)
@@ -268,11 +284,13 @@ class ElasticRuntime:
     def run(self, state: TrainState, num_steps: int, start_step: int = 0,
             on_step: Optional[Callable[[int, Dict], None]] = None
             ) -> TrainState:
+        rec = self.rec
         for step in range(start_step, start_step + num_steps):
             self._apply_events(state, step)
             if self.cluster.n_active == 0:
                 raise RuntimeError(f"no active workers at step {step}")
             t0 = time.monotonic()
+            t_rec = rec.now()
             batch, mask = slot_batch(self.model.cfg, self.dataset, step,
                                      self.cluster)
             if self.allocator is not None:
@@ -283,10 +301,23 @@ class ElasticRuntime:
             else:
                 state, m = self.step_fn(state, batch, mask)
             loss = float(m["loss"])
+            n_active = int(m["active"])
             self.step_seconds.append(time.monotonic() - t0)
             self.metrics_log.append(
                 {"step": step, "loss": loss,
-                 "active": int(m["active"]), "lr": float(m["lr"])})
+                 "active": n_active, "lr": float(m["lr"])})
+            if rec.enabled:
+                dt = rec.now() - t_rec
+                rec.span_at(obs.EV_STEP, cat=obs.CAT_TRAIN,
+                            t_wall=t_rec, dur_wall=dt,
+                            sim_t=float(step), dur_sim=1.0,
+                            loss=loss, n_active=n_active, mode=self.mode)
+                rec.metrics.counter("steps_total", mode=self.mode).inc()
+                rec.metrics.histogram("step_latency_ms").observe(dt * 1e3)
+                rec.metrics.gauge("workers", mode=self.mode).set(n_active)
+                if self.allocator is not None:
+                    rec.metrics.gauge("examples_per_step").set(
+                        float(m["examples"]))
             if on_step is not None:
                 on_step(step, m)
             if (self.ckpt is not None and self.tcfg.checkpoint_every

@@ -63,13 +63,13 @@ def price_at(kind: str, t: float, trace=None, *,
              transient: bool = True) -> float:
     """Spot $/hr for ``kind`` at simulation time ``t`` (seconds).
 
-    The replay hook: in the reference, a ``trace`` makes the quote
-    follow the trace's piecewise-constant price path; the port has no
-    trace replay yet, so a trace raises. Without one it is the static
-    Table II book price. On-demand prices never float.
+    The replay hook: with a ``trace`` (a ``traces.Trace`` or a
+    ``traces.replay.ReplayContext``) the quote follows the trace's
+    piecewise-constant price path; without one it is the static Table II
+    book price. On-demand prices never float.
     """
     if not transient or trace is None:
         return SERVER_TYPES[kind].price_hr(transient)
-    raise NotImplementedError(
-        "price_at(..., trace=...): trace replay (traces/replay.py) is not "
-        "ported to PyTorch yet; see ROADMAP.md Queue 1 item 2a")
+    # late import: the traces import this module
+    from repro_torch.traces.replay import context_for
+    return float(context_for(trace).price_at(kind, t))

@@ -23,9 +23,17 @@ scan), on every device; the summary says so. Full-width training of
 rwkv6-7b does not fit one card (about 120 GB of float32 masters and
 moments).
 
-Not ported yet: ``--gym`` (ROADMAP.md Queue 1 item 2e, the gym's execute
-path) and the ``--events``/``--profile`` recorder flags (Queue 1
-item 4).
+``--gym`` replays a market trace (``--trace``) through the training gym:
+an online policy (``--policy``) plans the fleet, the realized membership
+timeline trains the model with the elastic runtime (``--steps`` steps,
+``--full`` for the published widths, where the reference always trains
+the reduced config), and ``--gym-async-updates`` replays it through the
+async parameter server for the staleness histogram. Its summary has the
+reference's keys, plus the device, ``reduced``, the per-step losses and
+wall times, and each phase's seconds with the async-PS pushes per second.
+
+Not ported yet: the ``--events`` and ``--profile`` recorder flags
+(ROADMAP.md Queue 1 items 4 and 7); they raise.
 """
 from __future__ import annotations
 
@@ -43,12 +51,14 @@ from repro_torch.core import (CheckpointManager, ElasticRuntime,
                               RevocationEvent, SparseCluster)
 from repro_torch.core.transient import LIFETIMES
 from repro_torch.data.pipeline import ShardedDataset
+from repro_torch.device import resolve_device
 from repro_torch.models.builder import build_model
 from repro_torch.train.step import TrainState, init_state
 from repro_torch.train.trainer import Trainer
 
 _NOT_PORTED = {
-    "gym": "ROADMAP.md Queue 1 item 2e (the gym's execute path)",
+    "events": "ROADMAP.md Queue 1 item 4 (the drivers' obs flags)",
+    "profile": "ROADMAP.md Queue 1 item 7 (obs/profiling.py)",
 }
 
 
@@ -112,23 +122,109 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     # gym: trace-driven end-to-end replay (market trace -> real training)
     ap.add_argument("--gym", action="store_true",
                     help="replay a market trace through the training gym")
-    ap.add_argument("--trace", default="calm")
+    ap.add_argument("--trace", default="calm",
+                    help="trace file (.jsonl/.npz) or synthetic name "
+                         "(calm|volatile|bursty)")
     ap.add_argument("--policy", default="static",
                     choices=["static", "greedy", "lookahead"])
-    ap.add_argument("--gym-total-steps", type=int, default=64_000)
+    ap.add_argument("--gym-total-steps", type=int, default=64_000,
+                    help="virtual workload the trace replay simulates "
+                         "(--steps real steps are trained against it)")
     ap.add_argument("--gym-epoch-s", type=float, default=1800.0)
-    ap.add_argument("--gym-async-updates", type=int, default=0)
+    ap.add_argument("--gym-async-updates", type=int, default=0,
+                    help=">0: also replay through the async-PS simulator "
+                         "for the staleness histogram")
+    # the reference's observability flags (not ported: they raise)
+    ap.add_argument("--events", default=None, metavar="PATH")
+    ap.add_argument("--profile", default=None, metavar="DIR")
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any, TrainState]:
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_gym(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any]:
+    """The ``--gym --trace ...`` path: replay a market trace end to end.
+
+    A ``TransientGym`` plans the fleet against the trace (with the chosen
+    online policy replanning at decision epochs), then trains the
+    realized membership timeline with the elastic runtime on
+    ``--device`` and, with ``--gym-async-updates``, replays it through
+    the async PS. The phases are ``TransientGym.run``'s, called one by
+    one so each is timed. Returns (summary, ledger).
+    """
+    from repro_torch.core.policy import (GreedyCheapest, LookaheadMC,
+                                         PolicyDecision, StaticPolicy)
+    from repro_torch.gym import (TransientGym, execute_async_ps,
+                                 execute_masked)
+    from repro_torch.traces import load_trace
+
+    dev = resolve_device(args.device)
+    trace = load_trace(args.trace, seed=args.seed)
+    if args.policy == "static":
+        policy = StaticPolicy(PolicyDecision(args.server_kind,
+                                             args.initial_workers))
+    elif args.policy == "greedy":
+        policy = GreedyCheapest(n_workers=args.initial_workers)
+    else:
+        policy = LookaheadMC(seed=args.seed)
+    gym = TransientGym(trace, policy, total_steps=args.gym_total_steps,
+                       epoch_s=args.gym_epoch_s, refill=args.policy != "static",
+                       seed=args.seed)
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    ledger = gym.plan()
+    t_plan = time.monotonic()
+    execute_masked(ledger, arch=args.arch, train_steps=args.steps,
+                   seq_len=args.seq_len, seed=gym.seed, ckpt=ckpt,
+                   recorder=gym.rec, reduced=args.reduced, device=dev)
+    _sync(dev)
+    t_train = time.monotonic()
+    if args.gym_async_updates > 0:
+        execute_async_ps(ledger, updates=args.gym_async_updates,
+                         seed=gym.seed, recorder=gym.rec, device=dev)
+        _sync(dev)
+    t_end = time.monotonic()
+    out = ledger.to_dict()
+    out["wall_s"] = round(t_end - t0, 2)
+    del out["epochs"], out["schedule"]          # keep stdout scannable
+    out["n_epochs"] = len(ledger.epochs)
+    out["n_events"] = len(ledger.schedule)
+    pushes = sum(ledger.staleness_hist.values())
+    out.update({
+        "arch": args.arch, "reduced": args.reduced, "steps": args.steps,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else dev.type),
+        "loss_first": ledger.losses[0] if ledger.losses else None,
+        "loss_last": ledger.losses[-1] if ledger.losses else None,
+        "losses": list(ledger.losses), "step_s": list(ledger.step_s),
+        "plan_s": t_plan - t0, "train_s": t_train - t_plan,
+        "async_s": t_end - t_train, "async_pushes": pushes,
+        "async_pushes_per_s": (pushes / (t_end - t_train) if pushes
+                               else None),
+        "peak_device_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None),
+    })
+    return out, ledger
+
+
+def run(args: argparse.Namespace
+        ) -> Tuple[Dict[str, Any], Any, Optional[TrainState]]:
     """Train as the flags say; returns (summary, the ``Trainer`` or, with
-    ``--elastic``, the ``ElasticRuntime``, final state)."""
+    ``--elastic``, the ``ElasticRuntime``, final state), or with
+    ``--gym`` (summary, the ``GymLedger``, None)."""
     for flag, where in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to PyTorch yet; "
                 f"see {where}")
+    if args.gym:
+        out, ledger = run_gym(args)
+        return out, ledger, None
     # the kernels have no backward: train through the plain paths
     cfg = get_config(args.arch, reduced=args.reduced).replace(
         attn_impl="torch", ssm_impl="torch", rwkv_impl="torch")
@@ -184,8 +280,7 @@ def run(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any, TrainState]:
         state = loop.fit(state, args.steps, on_step=on_step)
         log = loop.metrics_log
         step_s = [r["step_s"] for r in per_step]
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     wall = time.monotonic() - t0
     first, last = log[0], log[-1]
     out = {

@@ -13,8 +13,9 @@ num_shards), and ``step`` rides inside the checkpoint payload, so a
 revocation + restore replays from the exact next batch — at most one
 global batch of work is lost.
 
-Not ported yet: the ``obs`` recorder (ROADMAP.md Queue 1 item 4); a
-``recorder`` raises. The ``metrics_log`` list keeps the reference's keys.
+Observability runs through an ``obs.Recorder`` (per-step spans plus the
+``steps_total``/``step_latency_ms`` series); ``None`` means ``obs.NULL``.
+The ``metrics_log`` list keeps the reference's keys.
 """
 from __future__ import annotations
 
@@ -24,9 +25,9 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.config import TrainConfig
 from repro_torch.core.checkpoint import CheckpointManager
-from repro_torch.core.elastic import RECORDER
 from repro_torch.data.pipeline import ShardedDataset
 from repro_torch.models.builder import Model
 from repro_torch.train.step import TrainState, init_state, make_train_step
@@ -54,17 +55,16 @@ class Trainer:
     dataset: ShardedDataset
     ckpt: Optional[CheckpointManager] = None
     log_every: int = 50
-    recorder: Optional[Any] = None
+    recorder: Optional[obs.Recorder] = None
 
     def __post_init__(self):
-        if self.recorder is not None:
-            raise NotImplementedError(RECORDER)
         if self.ckpt is not None and not isinstance(self.ckpt,
                                                     CheckpointManager):
             raise TypeError(f"ckpt must be a CheckpointManager, not "
                             f"{type(self.ckpt).__name__}")
         self.step_fn = make_train_step(self.model, self.tcfg)
         self.metrics_log: List[Dict[str, float]] = []
+        self.rec = self.recorder if self.recorder is not None else obs.NULL
 
     # -- lifecycle ----------------------------------------------------------
     def init_or_restore(self, generator: Optional[torch.Generator] = None
@@ -83,10 +83,20 @@ class Trainer:
             on_step: Optional[Callable[[int, Dict], None]] = None
             ) -> TrainState:
         start = int(state.step)
+        rec = self.rec
         t0 = time.monotonic()
         for step in range(start, start + num_steps):
+            ts = rec.now()
             batch = self.dataset.global_batch_at(step)
             state, m = self.step_fn(state, batch, lr_scale)
+            if rec.enabled:
+                loss = float(m["loss"])             # syncs: the step's end
+                dt = rec.now() - ts
+                rec.span_at(obs.EV_STEP, cat=obs.CAT_TRAIN, t_wall=ts,
+                            dur_wall=dt, sim_t=float(step), dur_sim=1.0,
+                            loss=loss, mode="static")
+                rec.metrics.counter("steps_total", mode="static").inc()
+                rec.metrics.histogram("step_latency_ms").observe(dt * 1e3)
             if on_step is not None:
                 on_step(step, m)
             if (step + 1) % self.log_every == 0 or step == start:

@@ -40,6 +40,7 @@ from repro.models.builder import build_model as jax_build  # noqa: E402
 from repro.train import step as JTS  # noqa: E402
 from repro_torch import config as C  # noqa: E402
 from repro_torch import hetero as H  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.core import (CheckpointManager, ElasticRuntime,  # noqa: E402
                               RevocationEvent, SparseCluster)
@@ -325,8 +326,15 @@ def test_no_workers_raises_and_recorder_is_not_ported(pair):
     rt.add_events([RevocationEvent(step=1, slot=0, kind="revoke")])
     with pytest.raises(RuntimeError, match="no active workers"):
         rt.run(TS.init_state(model, tc), 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ElasticRuntime(model, tc, ds, c, recorder=object())
+    # the recorder is ported (its emissions against the reference's are
+    # in tests/test_torch_gym.py); None means obs.NULL
+    assert rt.rec is obs.NULL
+    rec = obs.Recorder(deterministic=True)
+    c = SparseCluster(2)
+    c.fill_and_activate(0, 0)
+    ElasticRuntime(model, tc, ds, c, recorder=rec).run(
+        TS.init_state(model, tc), 1)
+    assert [(e.name, e.t_sim) for e in rec.events] == [(obs.EV_STEP, 0.0)]
 
 
 def test_remesh_cache_builds_once_per_size():
@@ -450,5 +458,6 @@ def test_launch_train_static_checkpoints_and_resumes(tmp_path):
     assert ck.latest_step() == 4
     again = launch.main([*flags, "--steps", "2"])
     assert again["final_step"] == 6 and ck.latest_step() == 6
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2e"):
-        launch.main(["--device", "cpu", "--gym"])
+    # --gym is ported (tests/test_torch_gym.py); the obs flags are not
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        launch.main(["--device", "cpu", "--events", str(tmp_path / "e")])

@@ -438,15 +438,18 @@ def test_trainer_fit_and_evaluate_accuracy():
 
 def test_trainer_refuses_checkpointing():
     """Checkpointing is ported (tests/test_torch_checkpoint.py): the
-    Trainer refuses a ``ckpt`` that is not a ``CheckpointManager``, and an
-    ``obs`` recorder, which is not ported."""
+    Trainer refuses a ``ckpt`` that is not a ``CheckpointManager``. Its
+    ``obs`` recorder is ported (tests/test_torch_gym.py): ``None`` means
+    ``obs.NULL``."""
     _, model, _ = models("starcoder2-3b")
     ds = D.ShardedDataset(model.cfg, global_batch=B, seq_len=SEQ,
                           device="cpu")
     with pytest.raises(TypeError, match="CheckpointManager"):
         TR.Trainer(model, tcfgs()[1], ds, ckpt=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TR.Trainer(model, tcfgs()[1], ds, recorder=object())
+    from repro_torch import obs
+    assert TR.Trainer(model, tcfgs()[1], ds).rec is obs.NULL
+    rec = obs.Recorder()
+    assert TR.Trainer(model, tcfgs()[1], ds, recorder=rec).rec is rec
 
 
 def test_launch_train_cli_on_cpu(capsys):
@@ -461,7 +464,8 @@ def test_launch_train_cli_on_cpu(capsys):
     # random weights: the first loss is near ln(V) = ln(512)
     assert abs(out["loss_first"] - math.log(512)) < 1.0
     assert '"final_step": 3' in capsys.readouterr().out
-    # --elastic and --ckpt-dir are ported (tests/test_torch_elastic.py);
-    # the gym's execute path is not
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2e"):
-        launch_train.main(["--device", "cpu", "--steps", "1", "--gym"])
+    # --elastic, --ckpt-dir (tests/test_torch_elastic.py) and --gym
+    # (tests/test_torch_gym.py) are ported; the obs flags are not
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        launch_train.main(["--device", "cpu", "--steps", "1", "--profile",
+                           "prof"])

@@ -89,9 +89,14 @@ def test_price_book_and_billing():
     assert P.SINGLE_K80_BUDGET == JP.SINGLE_K80_BUDGET
     with pytest.raises(ValueError):
         P.server_cost("K80", -1.0, True)
-    # trace replay is not ported: a trace raises and names its item
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2a"):
-        P.price_at("K80", 10.0, trace=object())
+    # with a trace the quote follows its price path, as the reference's
+    # (tests/test_torch_planning.py holds every kind at many times)
+    from repro.traces import load_trace as jload
+    from repro_torch.traces import load_trace
+    jt, pt = jload("volatile"), load_trace("volatile")
+    for t in (0.0, 10.0, 3600.0, 5e4):
+        assert P.price_at("K80", t, trace=pt) == JP.price_at("K80", t,
+                                                             trace=jt)
     assert P.price_at("K80", 10.0, trace=object(), transient=False) == \
         JP.SERVER_TYPES["K80"].ondemand_hr
 
