@@ -7,7 +7,8 @@ Drives the port's main paths at full width with random weights from a
 seed, through the four hand-written CUDA kernels (decode attention,
 flash attention, the Mamba-2 SSD scan and the RWKV-6 WKV recurrence):
 serving starcoder2-3b (30 layers, d_model 3072, 24 heads / 2 KV heads,
-bf16), its full-sequence forward, its training step and its training on
+bf16) with the dense and the paged cache and as a fleet of transient
+replicas replaying a request trace, its full-sequence forward, its training step and its training on
 transient servers (elastic slots, the warning's fast save, restore);
 the paper's ResNet-32 trained elastically and through the trace-driven
 gym; the full-width
@@ -51,20 +52,39 @@ phases that each print their name and ``ok``:
    migrates work to a second engine; the migrated tokens must equal the
    undisturbed ones, and the kernel must have run once per layer per
    decode cell;
-9. profile: one decode step under torch.profiler (device busy share);
-10. forward: ``Model.apply`` of starcoder2-3b on one batch of 4 x 2048
+9. serve-paged: the same 8 requests through the paged cache (pages of
+   16 positions): tokens equal to the dense engine's and the decode
+   kernel once per layer per cell; the drain ships the decoding
+   requests' pages to the second engine (pages shipped, no replay, the
+   undisturbed tokens); then the host wall per decode step and the
+   device busy share of profiled steps, dense and paged in turns, with
+   the device time of the paged cell's gathers;
+10. serve-fleet: ``launch.serve`` (through its ``run``) on a serve-bursty
+   trace written with the port's ``RequestTrace.to_jsonl`` (seed 0,
+   ``FLEET_HORIZON_S`` of virtual time): a 2-replica paged fleet with the
+   SLO queue, the autoscaler (2 to 3 replicas), the monitor, a warning
+   at 40% and a revocation at 70% of the horizon, the event log, time
+   series, ops report and a profiler trace of the first steps. Every
+   request completed or rejected, the revocation lost tokens, the
+   warning moved work, the report, the event log and the Chrome traces
+   validate, each completed request's tokens equal one undisturbed dense
+   engine's, and the decode kernel ran once per layer per cell; wall,
+   decode cells, host tokens/s, replicas spawned and the virtual-clock
+   TTFT/TPOT (not card times);
+11. profile: one decode step under torch.profiler (device busy share);
+12. forward: ``Model.apply`` of starcoder2-3b on one batch of 4 x 2048
     tokens through the flash kernel and through the plain attention;
     logits must agree, and the kernel must run once per layer; device
     time from torch.profiler;
-11. train: three steps of ``python -m repro_torch.launch.train --full``
+13. train: three steps of ``python -m repro_torch.launch.train --full``
     (through its ``run``), finite losses and gradient norms, the first
     loss near ln(vocab); a fourth step under torch.profiler; then
     ``evaluate_accuracy`` of the trained weights through the flash kernel
     and through the plain attention;
-12. train-parity: three ``Trainer.fit`` steps of reduced starcoder2-3b,
+14. train-parity: three ``Trainer.fit`` steps of reduced starcoder2-3b,
     gemma3-27b, zamba2-1.2b and rwkv6-7b in float32 on the card against
     the same steps on the CPU, from the same numpy weights;
-13. elastic: ``launch.train --full --elastic`` of starcoder2-3b (through
+15. elastic: ``launch.train --full --elastic`` of starcoder2-3b (through
     its ``run``): 2 slots, a worker joining at step 1, slot 0 warned at
     step 2 (a fast save of the whole AdamW state into ``CKPT_DIR``) and
     revoked at step 3; the active counts must be [1, 2, 2, 1], the LR
@@ -75,12 +95,12 @@ phases that each print their name and ``ok``:
     losses within ``RESUME_TOL`` of the uninterrupted run's), and the
     result evaluated through the flash kernel and the plain attention:
     the phase must launch flash once per layer and no other kernel;
-14. checkpoint-resume: reduced starcoder2-3b in float32 on the card with
+16. checkpoint-resume: reduced starcoder2-3b in float32 on the card with
     two replicas: a corrupted replica fails over to the other, a torn
     write (``fail_after_bytes``) leaves the previous step restorable and
     no ``.tmp_`` debris, and the resumed run equals the uninterrupted one
     within ``CKPT_PARAM_TOL`` / ``RESUME_TOL``;
-15. resnet32: the paper's ResNet-32 at its published size through
+17. resnet32: the paper's ResNet-32 at its published size through
     ``launch.train --elastic`` (momentum, global batch 128 over 4 slots,
     a join every 5 steps, one warned revocation, 20 steps): the active
     counts as scheduled, finite losses, steps/s, and 5 more steps under
@@ -89,7 +109,7 @@ phases that each print their name and ``ok``:
     the run's bf16 first loss to ``RESNET_BF16_TOL``). The reference's
     initialisation (scale-1 projections, GroupNorm) gives logits of tens,
     so the first loss is far above ln 10;
-16. gym: ``launch.train --gym`` (through its ``run``) of the volatile
+18. gym: ``launch.train --gym`` (through its ``run``) of the volatile
     trace with the greedy policy over 4 workers, training the paper's
     ResNet-32 at its published size for 64 steps on the mixed K80/P100
     plan (the hetero allocator) and replaying it through the async PS
@@ -102,7 +122,7 @@ phases that each print their name and ``ok``:
     CPU from the same weights: the final loss within ``GYM_LOSS_TOL``,
     equal staleness histograms, the PS params within ``GYM_PS_TOL``
     after ``GYM_PS_UPDATES`` pushes;
-17. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
+19. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
     through the kernels (38 SSD launches, all of the bf16 tensor-core
     kernel in the profiled bf16 forward, and 6 flash) and through the
     plain paths, in bf16 and in float32: the float32 logits must agree
@@ -110,14 +130,16 @@ phases that each print their name and ``ok``:
     from them, in root mean square, than 1.5x the bf16 plain path (bf16
     rounding alone moves these random models' logits by several percent
     of max|logit|); a profiled device breakdown;
-18. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
+20. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
     path being the sequential scan, at the same B=4, S=2048;
-19. serve-recurrent: each family served at full width as in phase 8
+21. serve-recurrent: each family served at full width as in phase 8
     (undisturbed, then revoke + drain; migrated tokens equal), zamba2's
-    decode cell running 6 decode-attention launches; zamba2 decode logits
+    decode cell running 6 decode-attention launches, and zamba2 again
+    with the paged cache (the dense run's tokens, pages shipped; dense
+    and paged decode steps in turns, as in phase 9); zamba2 decode logits
     through the kernel and the plain attention must agree, in float32
     within 1e-3 and in bf16 as the forwards' gate says;
-20. timing: device time of each kernel, its plain version and, where
+22. timing: device time of each kernel, its plain version and, where
     one PyTorch call computes the same function,
     ``scaled_dot_product_attention`` (the library yardstick, which the
     port never calls) beside the kernel's bound and the share of it
@@ -263,6 +285,16 @@ RECURRENT_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
 SERVE_ARGS = ["--no-reduced", "--requests", "8", "--max-batch", "4",
               "--max-len", "512", "--prompt-len", "16",
               "--max-new-tokens", "32", "--seed", "0"]
+PAGED_ARGS = ["--cache-impl", "paged", "--page-size", "16"]
+# the serve-fleet phase: a serve-bursty trace written with the port's
+# RequestTrace.to_jsonl, replayed through launch.serve at full width
+FLEET_DIR = os.path.join(ROOT, "build", "chip_smoke_fleet")
+FLEET_HORIZON_S = 80.0         # virtual seconds of the trace
+FLEET_ARGS = ["--no-reduced", "--queue", "slo", "--cache-impl", "paged",
+              "--replicas", "2", "--autoscale", "--min-replicas", "2",
+              "--max-replicas", "3", "--monitor", "--warn-at", "0.4",
+              "--revoke-at", "0.7", "--max-batch", "4", "--max-len", "512",
+              "--seed", "0"]
 
 
 def card() -> str:
@@ -505,8 +537,12 @@ def serve_and_migrate(torch, serve, args, model, params, card_line,
     a second engine. The migrated requests must give the undisturbed
     tokens. ``expect`` lists (wrapper, launches per decode cell): every
     count is set to 0 first, and after the undisturbed run and after all
-    runs it must be that many per decode cell. Returns the undisturbed
-    run's numbers and the decode cells of all engines (``cells``)."""
+    runs it must be that many per decode cell. On a paged engine
+    (``--cache-impl paged``) the drain ships the decoding requests' pages
+    to the second engine: at least one lands there, with no replay
+    charged. Returns the undisturbed run's numbers, the decode cells of
+    all engines (``cells``) and the migration's counters, and the
+    undisturbed tokens by request id."""
     cfg = model.cfg
     for fn, _ in expect:
         fn.launches = 0                           # the path's run starts
@@ -556,10 +592,16 @@ def serve_and_migrate(torch, serve, args, model, params, card_line,
     torch.cuda.synchronize()
     same = sum(r.generated == expected[r.rid] for r in reqs)
     cells = base.decode_cells + first.decode_cells + second.decode_cells
+    replayed = first.tokens_replayed + second.tokens_replayed
     print(f"  revoke+drain run: slot 1 lost {lost.timing.tokens_lost} "
           f"tokens, {len(migrated)} requests migrated, tokens_replayed "
-          f"{first.tokens_replayed}; tokens equal to the undisturbed "
-          f"run: {same}/{len(reqs)}")
+          f"{replayed}, pages shipped {second.pages_shipped} in "
+          f"{second.requests_imported} requests; tokens equal to the "
+          f"undisturbed run: {same}/{len(reqs)}")
+    if args.cache_impl == "paged":
+        check(second.pages_shipped > 0 and second.requests_imported > 0
+              and replayed == 0, "the paged drain shipped no pages or "
+                                 "charged a replay")
     print("  kernel launches " + ", ".join(
         f"{fn.__name__} {fn.launches} = {per_cell} x {cells} decode cells"
         for fn, per_cell in expect))
@@ -569,10 +611,196 @@ def serve_and_migrate(torch, serve, args, model, params, card_line,
         check(fn.launches == per_cell * cells,
               f"the main path launched {fn.__name__} {fn.launches} times, "
               f"not {per_cell} per decode cell x {cells}")
-    return {"tokens_per_s": tps, "decode_step_ms_mean": mean_step,
-            "decode_steps": len(step_ms), "decode_cells": base.decode_cells,
-            "wall_s": wall, "migrated": len(migrated), "cells": cells,
-            "tokens_equal": same}
+    return ({"tokens_per_s": tps, "decode_step_ms_mean": mean_step,
+             "decode_steps": len(step_ms),
+             "decode_cells": base.decode_cells, "wall_s": wall,
+             "migrated": len(migrated), "cells": cells, "tokens_equal": same,
+             "tokens_replayed": replayed,
+             "pages_shipped": second.pages_shipped,
+             "requests_imported": second.requests_imported}, expected)
+
+
+def step_walls(torch, eng, n):
+    """Host wall (ms) of each of ``n`` engine steps, each synchronised."""
+    walls = []
+    for _ in range(n):
+        t0 = time.monotonic()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    return walls
+
+
+def step_profile(torch, eng, n_prof=3):
+    """``n_prof`` engine steps under torch.profiler: (device busy ms a
+    step, {kernel name: (us a step, launches a step)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us() / n_prof,
+                           n + 1 / n_prof)
+    busy = sum(t for t, _ in by_name.values()) / 1e3
+    return busy, by_name
+
+
+def paged_step_compare(torch, serve, model, params, card_line,
+                       arch_args=()):
+    """One dense and one paged engine on the serve phase's first four
+    requests, in mid-decode: the host wall of 10 decode steps each,
+    dense, paged, paged, dense, then 3 profiled steps each for the
+    device busy time. The paged cell gathers each row's pages (two
+    index_select copies a layer) and writes through the page table; the
+    device time of the index kernels is printed beside the dense
+    cell's."""
+    engines = {}
+    for impl in ("dense", "paged"):
+        args = serve.parse_args(SERVE_ARGS + list(arch_args) + (
+            PAGED_ARGS if impl == "paged" else []))
+        eng = serve.make_engine(args, model, params)
+        for r in serve.make_requests(args, model.cfg.vocab_size)[:4]:
+            eng.submit(r)
+        while not all(r is not None and r.generated for r in eng.slots):
+            eng.step()
+        engines[impl] = eng
+    walls = {"dense": [], "paged": []}
+    for impl in ("dense", "paged", "paged", "dense"):
+        walls[impl] += step_walls(torch, engines[impl], 10)
+    out = {}
+    for impl, eng in engines.items():
+        busy, by_name = step_profile(torch, eng)
+        wall = sorted(walls[impl])[len(walls[impl]) // 2]
+        index = sum(t for nm, (t, _) in by_name.items()
+                    if "index" in nm.lower())
+        out[impl] = {"wall_ms": walls[impl], "wall_ms_median": wall,
+                     "busy_ms": busy, "busy_share": busy / wall,
+                     "index_us": index,
+                     "launches_per_step": sum(n for _, n in
+                                              by_name.values())}
+        print(f"  {model.cfg.name} {impl} decode step (B=4, max_len 512): "
+              f"host wall median "
+              f"{wall:.2f} ms (mean {sum(walls[impl]) / 20:.2f}, min "
+              f"{min(walls[impl]):.2f}), device busy {busy:.3f} ms (share "
+              f"{busy / wall:.3f}), index kernels {index:.1f} us a step, "
+              f"{out[impl]['launches_per_step']:.0f} device launches a "
+              f"step [{card_line}]")
+        for t, n, nm in sorted(((t, n, nm[:60]) for nm, (t, n)
+                                in by_name.items()), reverse=True)[:5]:
+            print(f"    {t:9.1f} us/step  x{n:<4.0f} {nm}")
+    return out
+
+
+def fleet_phase(torch, serve, card_line, dense_model, dense_params):
+    """``launch.serve`` on a serve-bursty trace (written here with the
+    port's ``RequestTrace.to_jsonl``) at full width: a 2-replica paged
+    fleet with the SLO queue, the autoscaler, the monitor, a warning at
+    40% and a revocation at 70% of the horizon, the event log, the time
+    series, the ops report and a profiler trace. Gates: every request
+    completed or rejected; the revocation lost tokens; the warning moved
+    work (pages shipped or tokens replayed); the report, the event log's
+    warn/revoke/migrate events and the Chrome traces validate; each
+    completed request's tokens equal the same request served undisturbed
+    by one dense engine; the decode kernel ran once per layer per decode
+    cell. TTFT/TPOT are on the virtual clock, not the card's."""
+    from repro_torch import obs
+    from repro_torch.launch.obs_args import PROFILE_STEPS
+    from repro_torch.obs import export
+    from repro_torch.obs.report import validate_report
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.traces.requests import synthetic_request_trace
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    os.makedirs(FLEET_DIR)
+    trace = synthetic_request_trace("serve-bursty", seed=0,
+                                    horizon_s=FLEET_HORIZON_S,
+                                    bursts=((0.4, 0.55, 3.0),))
+    path = trace.to_jsonl(os.path.join(FLEET_DIR, "trace.jsonl"))
+    files = {k: os.path.join(FLEET_DIR, v) for k, v in (
+        ("events", "events.jsonl"), ("series_out", "series.jsonl"),
+        ("report", "report.html"), ("profile", "profile"))}
+    args = serve.parse_args(FLEET_ARGS + ["--trace", path] + [
+        x for k, v in files.items()
+        for x in ("--" + k.replace("_", "-"), v)])
+    zero_counts()                                 # the path's run starts
+    t0 = time.monotonic()
+    out, reqs, cluster = serve.run(args)
+    wall = time.monotonic() - t0
+    counts = read_counts()                        # and ends
+    engines = cluster.replicas + cluster.retired
+    cells = sum(e.decode_cells for e in engines)
+    print("  summary " + json.dumps(out))
+    print(f"  {len(reqs)} requests over {FLEET_HORIZON_S:.0f} s of virtual "
+          f"time: wall {wall:.2f} s (run, weights included), serving "
+          f"{out['wall_s']} s, {cells} decode cells, host "
+          f"{out['tokens_per_s']} tokens/s, replicas spawned "
+          f"{out['replicas_spawned']}; virtual-clock TTFT p50/p95 "
+          f"{out['ttft_p50_s']}/{out['ttft_p95_s']} s, TPOT p50/p95 "
+          f"{out['tpot_p50_s']}/{out['tpot_p95_s']} s (not the card's "
+          f"times) [{card_line}]")
+    check(all(r.done or r.dropped for r in reqs)
+          and out["completed"] + sum(r.dropped for r in reqs) == len(reqs),
+          "a fleet request was neither completed nor rejected")
+    check(out["tokens_lost"] > 0, "the fleet's revocation lost no tokens")
+    check(out["pages_shipped"] > 0 or out["tokens_replayed"] > 0,
+          "the fleet's warning moved no work")
+    n_layers = engines[0].model.cfg.num_layers
+    check(counts["decode_attention"] == n_layers * cells
+          and counts["flash_attention"] == 0,
+          f"fleet launches {counts}, not {n_layers} decode per cell x "
+          f"{cells}")
+    with open(out["report"]) as f:
+        report_counts = validate_report(f.read())
+    events = obs.load_events(out["events"])
+    names = {e.name for e in events}
+    check({obs.EV_REVOKE_WARN, obs.EV_REVOKE_FIRE, obs.EV_MIGRATE} <= names,
+          f"the event log lacks warn/revoke/migrate events: {sorted(names)}")
+    n_trace = export.validate_chrome_trace(
+        export.to_chrome_trace(events, clock="sim"))
+    with open(out["timeline"]) as f:
+        export.validate_chrome_trace(json.load(f))
+    trace_mb = os.path.getsize(out["device_trace"]) / 1e6
+    # the same requests, undisturbed, on one dense engine
+    ref = ServeEngine(dense_model, dense_params, max_batch=4, max_len=512)
+    copies = [Request(rid=r.rid, prompt=list(r.prompt),
+                      max_new_tokens=r.max_new_tokens) for r in reqs]
+    for r in copies:
+        ref.submit(r)
+    t1 = time.monotonic()
+    ref.run_to_completion()
+    torch.cuda.synchronize()
+    ref_s = time.monotonic() - t1
+    done = [r for r in reqs if r.done]
+    same = sum(r.generated == c.generated for r, c in zip(reqs, copies)
+               if r.done)
+    print(f"  events {len(events)} ({n_trace} Chrome trace events), "
+          f"report {report_counts}, profiler trace of the first "
+          f"{PROFILE_STEPS} steps {trace_mb:.1f} MB; completed "
+          f"requests equal to the undisturbed dense engine's: "
+          f"{same}/{len(done)} (that engine: {ref_s:.2f} s) [{card_line}]")
+    check(same == len(done), "fleet tokens differ from the undisturbed "
+                             "dense engine's")
+    return {"requests": len(reqs), "completed": out["completed"],
+            "rejected": out["rejected"], "wall_s": wall,
+            "serve_wall_s": out["wall_s"], "decode_cells": cells,
+            "tokens_decoded": out["tokens_decoded"],
+            "tokens_per_s": out["tokens_per_s"],
+            "tokens_lost": out["tokens_lost"],
+            "tokens_replayed": out["tokens_replayed"],
+            "pages_shipped": out["pages_shipped"],
+            "requests_imported": out["requests_imported"],
+            "replicas_spawned": out["replicas_spawned"],
+            "replica_seconds": out["replica_seconds"],
+            "alerts": len(out["alerts"]), "events": len(events),
+            "virtual_ttft_p50_s": out["ttft_p50_s"],
+            "virtual_tpot_p50_s": out["tpot_p50_s"],
+            "device_trace_MB": trace_mb, "dense_reference_s": ref_s,
+            "decode_launches": counts["decode_attention"]}
 
 
 def rel(a, b):
@@ -1476,11 +1704,25 @@ def main() -> int:
               "full-width decode cell: kernel path and plain path disagree")
 
     with phase("serve"):
-        serve_stats = serve_and_migrate(
+        serve_stats, dense_tokens = serve_and_migrate(
             torch, serve, args, model, params, card_line,
             [(decode_attention, cfg.num_layers), (flash_attention, 0)])
         mean_step = serve_stats["decode_step_ms_mean"]
         record["launches"] = decode_attention.launches
+
+    with phase("serve-paged"):
+        pargs = serve.parse_args(SERVE_ARGS + PAGED_ARGS)
+        paged_stats, paged_tokens = serve_and_migrate(
+            torch, serve, pargs, model, params, card_line,
+            [(decode_attention, cfg.num_layers), (flash_attention, 0)])
+        check(paged_tokens == dense_tokens, "the paged engine's tokens "
+                                            "differ from the dense one's")
+        paged_stats["step_compare"] = paged_step_compare(
+            torch, serve, model, params, card_line)
+
+    with phase("serve-fleet"):
+        fleet_stats = fleet_phase(torch, serve, card_line, model, params)
+        release(torch)
 
     with phase("profile"):
         from torch.autograd import DeviceType
@@ -1738,12 +1980,22 @@ def main() -> int:
                         if rcfg.family == "hybrid" else 0)
             # the kernels of the full-sequence path never run while
             # serving: every token goes through the decode cell
-            stats["serve"] = serve_and_migrate(
-                torch, serve, rargs, rmodel, rparams, card_line,
-                [(decode_attention, per_cell), (ssd_scan, 0), (rwkv6_scan, 0),
-                 (flash_attention, 0)])
+            expect = [(decode_attention, per_cell), (ssd_scan, 0),
+                      (rwkv6_scan, 0), (flash_attention, 0)]
+            stats["serve"], dense_rec = serve_and_migrate(
+                torch, serve, rargs, rmodel, rparams, card_line, expect)
             if rcfg.family != "hybrid":
                 continue
+            # zamba2 with the paged cache: its shared block's KV in pages,
+            # the same tokens and decode launches as the dense cache
+            pargs = serve.parse_args(SERVE_ARGS + ["--arch", arch,
+                                                   *PAGED_ARGS])
+            stats["serve_paged"], paged_rec = serve_and_migrate(
+                torch, serve, pargs, rmodel, rparams, card_line, expect)
+            check(paged_rec == dense_rec, f"{rcfg.name}: the paged engine's "
+                                          f"tokens differ from the dense one's")
+            stats["step_compare"] = paged_step_compare(
+                torch, serve, rmodel, rparams, card_line, ["--arch", arch])
             stats["decode_logit_rel_diff"] = decode_check(
                 torch, rmodel, rparams, gen, card_line)
         recurrent_stats = {arch: st for arch, (_, _, st) in recurrent.items()}
@@ -1932,6 +2184,7 @@ def main() -> int:
                           "ssd_timing": ssd_timing,
                           "wkv_timings": wkv_timings,
                           "serve": serve_stats, "profile": profile_stats,
+                          "serve_paged": paged_stats, "fleet": fleet_stats,
                           "train": train_stats, "train_parity": parity,
                           "elastic": elastic_stats,
                           "checkpoint": checkpoint_stats,

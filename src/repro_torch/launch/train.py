@@ -32,8 +32,11 @@ async parameter server for the staleness histogram. Its summary has the
 reference's keys, plus the device, ``reduced``, the per-step losses and
 wall times, and each phase's seconds with the async-PS pushes per second.
 
-Not ported yet: the ``--events`` and ``--profile`` recorder flags
-(ROADMAP.md Queue 1 items 4 and 7); they raise.
+``--events PATH`` records the run's event log (the trainer's, the
+elastic runtime's or the gym's events, as the reference records them)
+and ``--profile DIR`` a ``torch.profiler`` trace of its first
+few steps beside it (``launch/obs_args.py``); the paths
+join the summary.
 """
 from __future__ import annotations
 
@@ -52,14 +55,12 @@ from repro_torch.core import (CheckpointManager, ElasticRuntime,
 from repro_torch.core.transient import LIFETIMES
 from repro_torch.data.pipeline import ShardedDataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.obs_args import (add_obs_args, finalize_recorder,
+                                         recorder_from_args)
 from repro_torch.models.builder import build_model
+from repro_torch.obs import profiling
 from repro_torch.train.step import TrainState, init_state
 from repro_torch.train.trainer import Trainer
-
-_NOT_PORTED = {
-    "events": "ROADMAP.md Queue 1 item 4 (the drivers' obs flags)",
-    "profile": "ROADMAP.md Queue 1 item 7 (obs/profiling.py)",
-}
 
 
 def build_trace(args, rng: np.random.Generator) -> List[RevocationEvent]:
@@ -134,9 +135,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--gym-async-updates", type=int, default=0,
                     help=">0: also replay through the async-PS simulator "
                          "for the staleness histogram")
-    # the reference's observability flags (not ported: they raise)
-    ap.add_argument("--events", default=None, metavar="PATH")
-    ap.add_argument("--profile", default=None, metavar="DIR")
+    add_obs_args(ap)
     return ap.parse_args(argv)
 
 
@@ -145,7 +144,8 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_gym(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any]:
+def run_gym(args: argparse.Namespace, rec=None
+            ) -> Tuple[Dict[str, Any], Any]:
     """The ``--gym --trace ...`` path: replay a market trace end to end.
 
     A ``TransientGym`` plans the fleet against the trace (with the chosen
@@ -153,7 +153,7 @@ def run_gym(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any]:
     realized membership timeline with the elastic runtime on
     ``--device`` and, with ``--gym-async-updates``, replays it through
     the async PS. The phases are ``TransientGym.run``'s, called one by
-    one so each is timed. Returns (summary, ledger).
+    one so each is timed; ``rec`` records them. Returns (summary, ledger).
     """
     from repro_torch.core.policy import (GreedyCheapest, LookaheadMC,
                                          PolicyDecision, StaticPolicy)
@@ -172,7 +172,7 @@ def run_gym(args: argparse.Namespace) -> Tuple[Dict[str, Any], Any]:
         policy = LookaheadMC(seed=args.seed)
     gym = TransientGym(trace, policy, total_steps=args.gym_total_steps,
                        epoch_s=args.gym_epoch_s, refill=args.policy != "static",
-                       seed=args.seed)
+                       seed=args.seed, recorder=rec)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -217,13 +217,12 @@ def run(args: argparse.Namespace
     """Train as the flags say; returns (summary, the ``Trainer`` or, with
     ``--elastic``, the ``ElasticRuntime``, final state), or with
     ``--gym`` (summary, the ``GymLedger``, None)."""
-    for flag, where in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to PyTorch yet; "
-                f"see {where}")
     if args.gym:
-        out, ledger = run_gym(args)
+        rec, traced = recorder_from_args(
+            args, meta={"driver": "gym", "trace": args.trace,
+                        "policy": args.policy, "arch": args.arch})
+        out, ledger = run_gym(args, rec)
+        out.update(finalize_recorder(args, rec, traced, clock="sim"))
         return out, ledger, None
     # the kernels have no backward: train through the plain paths
     cfg = get_config(args.arch, reduced=args.reduced).replace(
@@ -245,6 +244,9 @@ def run(args: argparse.Namespace
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
+    rec, traced = recorder_from_args(
+        args, meta={"driver": "elastic" if args.elastic else "trainer",
+                    "arch": args.arch, "steps": args.steps})
     per_step: List[Dict[str, float]] = []
     clock = [time.monotonic()]
 
@@ -254,6 +256,7 @@ def run(args: argparse.Namespace
         per_step.append({"loss": loss, "grad_norm": gnorm,
                          "step_s": now - clock[0]})
         clock[0] = now
+        profiling.step()
 
     t0 = time.monotonic()
     extra: Dict[str, Any] = {}
@@ -261,7 +264,7 @@ def run(args: argparse.Namespace
         cluster = SparseCluster(max_slots=args.slots)
         for s in range(args.initial_workers):
             cluster.fill_and_activate(s, 0, kind=args.server_kind)
-        loop = ElasticRuntime(model, tcfg, ds, cluster, ckpt)
+        loop = ElasticRuntime(model, tcfg, ds, cluster, ckpt, recorder=rec)
         loop.add_events(build_trace(args, np.random.default_rng(args.seed)))
         state = init_state(model, tcfg)
         state = loop.run(state, args.steps, on_step=on_step)
@@ -274,7 +277,7 @@ def run(args: argparse.Namespace
         }
         step_s = loop.step_seconds
     else:
-        loop = Trainer(model, tcfg, ds, ckpt)
+        loop = Trainer(model, tcfg, ds, ckpt, recorder=rec)
         state = loop.init_or_restore()
         clock[0] = time.monotonic()
         state = loop.fit(state, args.steps, on_step=on_step)
@@ -304,6 +307,7 @@ def run(args: argparse.Namespace
                                      if dev.type == "cuda" else None),
         **extra,
     }
+    out.update(finalize_recorder(args, rec, traced, clock="sim"))
     return out, loop, state
 
 

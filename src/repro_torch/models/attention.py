@@ -168,3 +168,87 @@ def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
         cache[rows, at] = torch.where(sel, new[:, 0].to(cache.dtype),
                                       cache[rows, at])
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Paged decode (vLLM-style): KV lives in a shared physical page pool
+# ---------------------------------------------------------------------------
+
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """pages: (P, ps, ...); page_table: (B, Lp) logical->physical map.
+    Returns the contiguous logical row views (B, Lp*ps, ...): position j
+    of row b lives in physical page ``page_table[b, j // ps]`` at offset
+    ``j % ps``. Table entries past a row's pages gather some other page;
+    callers mask by ``pos`` exactly like the dense path, so what lies
+    beyond the written prefix never reaches the softmax."""
+    B, Lp = page_table.shape
+    ps = pages.shape[1]
+    view = pages.index_select(0, page_table.reshape(-1))   # (B*Lp, ps, ...)
+    return view.reshape((B, Lp * ps) + tuple(pages.shape[2:]))
+
+
+def attend_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, page_table: torch.Tensor,
+                        pos: torch.Tensor, *, window: int = 0,
+                        impl: str = "cuda") -> torch.Tensor:
+    """Page-table-indexed decode attention. q: (B,1,H,Dh); pools:
+    (P, ps, KV, Dh); page_table: (B, Lp); pos: (B,) current index.
+
+    The page table is the only indirection: after the gather the logical
+    row view is the dense cache row (padded to Lp*ps with masked
+    positions), and ``attend_decode`` runs on it, so ``impl="cuda"``
+    reaches the decode kernel. The gather costs two copies of the rows'
+    views per call."""
+    k = gather_pages(k_pages, page_table)
+    v = gather_pages(v_pages, page_table)
+    return attend_decode(q, k, v, pos, window=window, impl=impl)
+
+
+PageSlots = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def page_slots(page_table: torch.Tensor, pos: torch.Tensor, page_size: int,
+               rows: Optional[torch.Tensor] = None) -> PageSlots:
+    """Where this token's KV goes: (rows, physical page, offset) of each
+    row listed in ``rows`` (an index tensor; None = every row), at its
+    position ``pos`` (B,). A position past the table's last page is
+    clipped into it, as the reference clips it. Every layer of a cell
+    writes to the same slots, so the cell computes them once."""
+    B, Lp = page_table.shape
+    if rows is None:
+        rows = torch.arange(B, device=pos.device)
+    p = pos[rows].long()
+    logical = torch.clamp(p // page_size, 0, Lp - 1)
+    return rows, page_table[rows, logical].long(), p % page_size
+
+
+def write_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor, slots: PageSlots
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write (B,1,KV,Dh) new entries into the page pools IN PLACE at
+    ``slots`` (:func:`page_slots`); rows left out of them write
+    nothing at all."""
+    rows, phys, off = slots
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        pages[phys, off] = new[rows, 0].to(pages.dtype)
+    return k_pages, v_pages
+
+
+def update_cache_paged(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       page_table: torch.Tensor, pos: torch.Tensor,
+                       write_mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter (B,1,KV,Dh) new entries into the page pools IN PLACE at
+    per-row positions (B,). Rows with ``write_mask`` False write nothing:
+    in the paged layout a stale page-table row may point at pages that
+    now belong to another request. The reference redirects such writes to
+    an out-of-range page that its scatter drops (``mode="drop"``); torch
+    has no drop mode and an out-of-range index is an error on CUDA, so
+    the write is restricted to the kept rows instead (which reads the
+    mask back to the host)."""
+    rows = None if write_mask is None \
+        else torch.nonzero(write_mask).flatten()
+    return write_pages(k_pages, v_pages, k_new, v_new,
+                       page_slots(page_table, pos, k_pages.shape[1], rows))

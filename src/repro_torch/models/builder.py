@@ -1,9 +1,9 @@
 """Model builder (counterpart of ``repro.models.builder``): a uniform
-callable surface over the ported stacks (init, apply, decode), bound to
-one device. The resnet family (``models/resnet.py``) has init and apply
-and no decode cache, as in the reference (``init_cache`` and ``decode``
-raise for it); every other ported family is a ``models/transformer.py``
-stack.
+callable surface over the ported stacks (init, apply, decode, paged
+decode), bound to one device. The resnet family (``models/resnet.py``)
+has init and apply and no decode cache, as in the reference (the cache
+and decode methods raise for it); every other ported family is a
+``models/transformer.py`` stack.
 """
 from __future__ import annotations
 
@@ -58,6 +58,19 @@ class Model:
         return transformer.decode_step(params, self.cfg, cache, batch,
                                        advance)
 
+    def init_paged_cache(self, batch: int, max_len: int, *, page_size: int,
+                         num_pages: int,
+                         device: Optional[torch.device] = None) -> Tree:
+        return transformer.init_paged_decode_cache(
+            self.cfg, batch, max_len, page_size=page_size,
+            num_pages=num_pages, device=device or self.device)
+
+    def decode_paged(self, params: Tree, cache: Tree,
+                     batch: Dict[str, torch.Tensor], advance=None
+                     ) -> Tuple[torch.Tensor, Tree]:
+        return transformer.decode_step_paged(params, self.cfg, cache, batch,
+                                             advance)
+
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on this model's device, for ``init``."""
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -69,20 +82,37 @@ def cache_batch_axes(model: Model, max_len: int = 8) -> Tree:
     allocation) at two batch sizes, and the one axis whose extent differs
     is the batch axis. A non-batch dimension that happens to equal the
     batch size cannot be mistaken for it."""
-    b1, b2 = 3, 5
-    c1 = model.init_cache(b1, max_len, device=torch.device("meta"))
-    c2 = model.init_cache(b2, max_len, device=torch.device("meta"))
+    meta = torch.device("meta")
+    return tree_map(_batch_axis, model.init_cache(3, max_len, device=meta),
+                    model.init_cache(5, max_len, device=meta))
 
-    def axis(a, b):
-        diffs = [i for i, (x, y) in enumerate(zip(a.shape, b.shape))
-                 if x != y]
-        if len(diffs) != 1:
-            raise ValueError(f"cannot derive batch axis: shapes "
-                             f"{tuple(a.shape)} vs {tuple(b.shape)} differ "
-                             f"on axes {diffs}")
-        return diffs[0]
 
-    return tree_map(axis, c1, c2)
+def paged_cache_axes(model: Model, max_len: int = 8, *, page_size: int = 4,
+                     num_pages: int = 8) -> Tree:
+    """Per-leaf batch axis of the PAGED decode cache, by the same two
+    probes as :func:`cache_batch_axes`, except that leaves whose shape
+    does not scale with the batch (the physical page pools, shared across
+    rows) map to the sentinel ``-1``
+    (``repro_torch.serving.paging.POOL_AXIS_SENTINEL``)."""
+    meta = torch.device("meta")
+    c1, c2 = (model.init_paged_cache(b, max_len, page_size=page_size,
+                                     num_pages=num_pages, device=meta)
+              for b in (3, 5))
+    return tree_map(lambda a, b: _batch_axis(a, b, pool=-1), c1, c2)
+
+
+def _batch_axis(a: torch.Tensor, b: torch.Tensor,
+                pool: Optional[int] = None) -> int:
+    """The one axis on which two probes of a leaf differ; ``pool`` if they
+    differ on none and a pool leaf is allowed there."""
+    diffs = [i for i, (x, y) in enumerate(zip(a.shape, b.shape)) if x != y]
+    if not diffs and pool is not None:
+        return pool
+    if len(diffs) != 1:
+        raise ValueError(f"cannot derive batch axis: shapes "
+                         f"{tuple(a.shape)} vs {tuple(b.shape)} differ on "
+                         f"axes {diffs}")
+    return diffs[0]
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

@@ -20,11 +20,16 @@ Public entry points (used by the builder, train/serve steps and engine):
     forward(params, cfg, batch, remat)               -> (logits, aux)
     init_decode_cache(cfg, batch, max_len, device)   -> cache tree
     decode_step(params, cfg, cache, batch)           -> (logits, cache)
+    init_paged_decode_cache(cfg, batch, max_len, page_size=, num_pages=,
+                            device=)                 -> paged cache tree
+    decode_step_paged(params, cfg, cache, batch, advance)
+                                                     -> (logits, cache)
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -412,4 +417,116 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
     x = L.rms_norm(x, params["final_norm"]["gamma"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg.tie_embeddings)
     nxt = pos + 1 if advance is None else pos + advance.to(pos.dtype)
+    return logits, {**cache, "pos": nxt}
+
+
+# ---------------------------------------------------------------------------
+# Paged decode
+# ---------------------------------------------------------------------------
+
+def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                            page_size: int, num_pages: int, device) -> Tree:
+    """Cache tree for ``decode_step_paged``: every length-bearing KV leaf
+    becomes a physical page pool ``(layers, num_pages, page_size, KV, Dh)``
+    shared by all rows, indexed through a per-row ``page_table`` leaf
+    ``(batch, ceil(max_len / page_size))`` int32. Recurrent per-row state
+    carries no length axis and stays dense.
+    - dense: ``kv`` pools, the page table and ``pos``;
+    - hybrid: the dense cache with ``shared_kv`` as pools, plus the table;
+    - ssm: the dense cache plus the table (attention-free, so no pool;
+      the table keeps the engine's page accounting uniform)."""
+    require_ported(cfg)
+    dt = L.torch_dtype(cfg.dtype)
+    pages_per_row = -(-max_len // page_size)
+
+    def kv_pool(n):
+        shape = (n, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    table = torch.zeros((batch, pages_per_row), dtype=torch.int32,
+                        device=device)
+    if cfg.family == "dense":
+        return {"kv": kv_pool(cfg.num_layers), "page_table": table,
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+    c = init_decode_cache(cfg, batch, max_len, device)
+    if cfg.family == "hybrid":
+        c["shared_kv"] = kv_pool(num_shared_invocations(cfg))
+    c["page_table"] = table
+    return c
+
+
+def _advance_rows(advance, pos: torch.Tensor
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(device bool mask, device index of the advancing rows) from a host
+    mask, with no device sync; (None, None) when every row advances."""
+    if advance is None:
+        return None, None
+    adv = np.asarray(advance, dtype=bool)
+    if adv.all():
+        return None, None
+    return (torch.as_tensor(adv, device=pos.device),
+            torch.as_tensor(np.flatnonzero(adv), device=pos.device))
+
+
+def _decode_attn_layer_paged(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
+                             kp: torch.Tensor, vp: torch.Tensor,
+                             table: torch.Tensor, pos: torch.Tensor,
+                             window: int, slots: A.PageSlots
+                             ) -> torch.Tensor:
+    h = L.rms_norm(x, lp["ln1"]["gamma"], cfg.norm_eps)
+    q, k, v = A.project_qkv(lp["attn"], h, cfg, positions=pos[:, None])
+    A.write_pages(kp, vp, k, v, slots)
+    att = A.attend_decode_paged(q, kp, vp, table, pos, window=window,
+                                impl=cfg.attn_impl)
+    return x + A.out_proj(lp["attn"], att)
+
+
+def decode_step_paged(params: Tree, cfg: ModelConfig, cache: Tree,
+                      batch: Dict[str, torch.Tensor], advance=None
+                      ) -> Tuple[torch.Tensor, Tree]:
+    """One-token decode against the paged cache. Same contract as
+    :func:`decode_step`, plus ``advance``: the (B,) bool rows that consume
+    this token, as a host array (numpy or a sequence). Rows that
+    do not advance write no page (their page-table rows may point at
+    pages now owned by another request), and keep their recurrent state,
+    conv and token-shift rows and ``pos``, frozen in place by the same
+    batch-axis select as the dense cell's. Their logits are
+    meaningless."""
+    require_ported(cfg)
+    pos = cache["pos"]
+    mask, rows = _advance_rows(advance, pos)
+    if cfg.family == "ssm":
+        # no paged leaves: the dense cell already is the paged cell
+        return decode_step(params, cfg, cache, batch, mask)
+    table = cache["page_table"]
+    pool = cache["kv"] if cfg.family == "dense" else cache["shared_kv"]
+    ks, vs = pool["k"], pool["v"]
+    slots = A.page_slots(table, pos, ks.shape[2], rows)
+    x = L.embed(params["embed"], batch["tokens"], L.torch_dtype(cfg.dtype))
+    if cfg.family == "dense":
+        layers = tree_unbind(params["layers"])
+        for i, win in enumerate(_window_schedule(cfg, cfg.num_layers)):
+            x = _decode_attn_layer_paged(layers[i], x, cfg, ks[i], vs[i],
+                                         table, pos, win, slots)
+            x = _mlp_block(layers[i], x, cfg)
+    else:
+        sp = params["shared"]
+        blk = cache["blocks"]
+        for b, bp in enumerate(tree_unbind(params["blocks"])):
+            for i, lp in enumerate(tree_unbind(bp)):
+                x = _decode_mamba_layer(lp, x, cfg, blk["state"][b, i],
+                                        blk["conv"][b, i], mask)
+            x = _decode_attn_layer_paged(sp, x, cfg, ks[b], vs[b], table,
+                                         pos, 0, slots)
+            x = _mlp_block(sp, x, cfg)
+        if "tail" in cache:
+            tail = cache["tail"]
+            for i, lp in enumerate(tree_unbind(params["tail"])):
+                x = _decode_mamba_layer(lp, x, cfg, tail["state"][i],
+                                        tail["conv"][i], mask)
+    x = L.rms_norm(x, params["final_norm"]["gamma"], cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg.tie_embeddings)
+    nxt = pos + 1 if mask is None else pos + mask.to(pos.dtype)
     return logits, {**cache, "pos": nxt}

@@ -16,9 +16,9 @@ replay   vectorized trace playback for the batched MC engine
          (``ReplayContext``): bootstrap-resampled lifetime windows and
          piecewise-constant price integration, keeping the trial axis an
          array axis.
-
-Not ported yet: ``requests``, the seeded inference request traces the
-serving driver replays (ROADMAP.md Queue 1 item 2a).
+requests the demand-side twin: seeded inference *request* traces
+         (diurnal + bursty Poisson arrivals with SLO classes) that the
+         serving engine and ``launch/serve.py`` replay.
 
 ``simulate_many(..., trace=...)`` and the policy layer
 (``core/policy.py``) consume these.
@@ -28,6 +28,9 @@ from repro_torch.traces.schema import (EVENT_KINDS, Trace,  # noqa: F401
 from repro_torch.traces.synth import (default_trace_suite,  # noqa: F401
                                       synthetic_trace, trace_from_model)
 from repro_torch.traces.replay import ReplayContext  # noqa: F401
+from repro_torch.traces.requests import (RequestEvent,  # noqa: F401
+                                         RequestTrace,
+                                         synthetic_request_trace)
 
 
 def load_trace(spec: str, seed: int = 0) -> Trace:

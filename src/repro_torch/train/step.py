@@ -1,5 +1,5 @@
-"""train_step / serve_step / prefill_step factories (counterpart of
-``repro.train.step``).
+"""train_step / serve_step / prefill_step factories, dense and paged
+(counterpart of ``repro.train.step``).
 
 ``make_train_step`` builds the training step: loss -> gradients (with each
 layer recomputed in the backward when ``tcfg.remat`` asks for it) ->
@@ -235,6 +235,51 @@ def make_prefill_step(model: Model) -> Callable[..., Tree]:
                 adv, device=tokens.device)
             _, cache = model.decode(params, cache,
                                     {"tokens": tokens[:, t:t + 1]}, mask)
+        return cache
+
+    return prefill_step
+
+
+def make_paged_serve_step(model: Model, *, sample: str = "greedy"
+                          ) -> Callable[..., Tuple[torch.Tensor, Tree]]:
+    """One-token decode against the paged cache:
+    ``(params, cache, tokens (B,1), active (B,)) -> (next, cache)``.
+
+    Unlike the dense step, the active-row mask is part of the cell:
+    inactive rows' page-table entries may point at pages owned by another
+    request, so their KV writes must be dropped inside the cell, not
+    merely ignored by the engine afterwards. ``active`` is a host array
+    (no device sync)."""
+    if sample != "greedy":
+        raise ValueError(sample)
+
+    @torch.no_grad()
+    def serve_step(params: Tree, cache: Tree, tokens: torch.Tensor,
+                   active: Sequence[bool]) -> Tuple[torch.Tensor, Tree]:
+        logits, cache = model.decode_paged(params, cache, {"tokens": tokens},
+                                           active)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+        return nxt[:, None], cache
+
+    return serve_step
+
+
+def make_paged_prefill_step(model: Model) -> Callable[..., Tree]:
+    """Blocked prefill over the paged decode cell. Same contract as
+    :func:`make_prefill_step`, ``(params, cache, tokens (B, T), n_valid
+    (B,)) -> cache`` with ``n_valid`` a host array, and the same loop: the
+    per-row advance mask goes into the cell, which writes no page for
+    frozen rows (the reference's write drop) and keeps their per-row
+    leaves (page table, pos, recurrent state) by a batch-axis select."""
+
+    @torch.no_grad()
+    def prefill_step(params: Tree, cache: Tree, tokens: torch.Tensor,
+                     n_valid: Sequence[int]) -> Tree:
+        n_valid = np.asarray(n_valid)
+        for t in range(int(n_valid.max(initial=0))):
+            _, cache = model.decode_paged(params, cache,
+                                          {"tokens": tokens[:, t:t + 1]},
+                                          t < n_valid)
         return cache
 
     return prefill_step

@@ -458,6 +458,10 @@ def test_launch_train_static_checkpoints_and_resumes(tmp_path):
     assert ck.latest_step() == 4
     again = launch.main([*flags, "--steps", "2"])
     assert again["final_step"] == 6 and ck.latest_step() == 6
-    # --gym is ported (tests/test_torch_gym.py); the obs flags are not
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        launch.main(["--device", "cpu", "--events", str(tmp_path / "e")])
+    # --gym is ported (tests/test_torch_gym.py), and so are the obs flags:
+    # --events records the resumed run's steps
+    out = launch.main([*flags, "--steps", "1", "--events",
+                       str(tmp_path / "e.jsonl")])
+    steps = [e for e in obs.load_events(out["events"])
+             if e.name == obs.EV_STEP]
+    assert out["final_step"] == 7 and len(steps) == 1

@@ -19,6 +19,7 @@ counts and staleness histograms exact; the async PS's params within
 """
 import json
 import math
+import os
 import sys
 
 import numpy as np
@@ -276,8 +277,22 @@ def test_launch_train_gym_full_trains_the_published_widths(monkeypatch):
 @pytest.mark.parametrize("flag,item", [("--events", "item 4"),
                                        ("--profile", "item 7")])
 def test_launch_train_obs_flags_are_not_ported(flag, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        launch.main(["--device", "cpu", "--gym", flag, str(tmp_path)])
+    """The flags that raised until ROADMAP Queue 1 {item} was ported now
+    record the gym's run: ``--events`` its event log, ``--profile`` a
+    profiler trace with the log and the timeline beside it."""
+    path = str(tmp_path / ("events.jsonl" if flag == "--events" else "prof"))
+    out = launch.main(["--device", "cpu", "--gym", "--steps", "2", flag,
+                       path])
+    assert out["executed_steps"] == 2
+    events = obs.load_events(out["events"])
+    assert {e.name for e in events} >= {obs.EV_EPISODE, obs.EV_STEP}
+    if flag == "--profile":
+        assert out["profile_dir"] == path
+        for name in ("device.trace.json", "events.jsonl",
+                     "timeline.trace.json"):
+            assert os.path.getsize(os.path.join(path, name)) > 0
+    else:
+        assert out["events"] == path and "profile_dir" not in out
 
 
 def test_trainer_emissions_match_the_reference():

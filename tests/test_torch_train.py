@@ -27,6 +27,7 @@ rounding falls, nothing else):
 """
 import dataclasses
 import math
+import os
 
 import numpy as np
 import pytest
@@ -452,7 +453,7 @@ def test_trainer_refuses_checkpointing():
     assert TR.Trainer(model, tcfgs()[1], ds, recorder=rec).rec is rec
 
 
-def test_launch_train_cli_on_cpu(capsys):
+def test_launch_train_cli_on_cpu(capsys, tmp_path):
     out = launch_train.main(["--device", "cpu", "--steps", "3",
                              "--global-batch", "4", "--seq-len", "16"])
     assert {"arch", "steps", "wall_s", "loss_first", "loss_last", "elastic",
@@ -465,7 +466,11 @@ def test_launch_train_cli_on_cpu(capsys):
     assert abs(out["loss_first"] - math.log(512)) < 1.0
     assert '"final_step": 3' in capsys.readouterr().out
     # --elastic, --ckpt-dir (tests/test_torch_elastic.py) and --gym
-    # (tests/test_torch_gym.py) are ported; the obs flags are not
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        launch_train.main(["--device", "cpu", "--steps", "1", "--profile",
-                           "prof"])
+    # (tests/test_torch_gym.py) are ported, and so are the obs flags:
+    # --profile writes the profiler trace, the event log and the timeline
+    prof = str(tmp_path / "prof")
+    out = launch_train.main(["--device", "cpu", "--steps", "1", "--profile",
+                             prof, "--global-batch", "4", "--seq-len", "16"])
+    assert out["profile_dir"] == prof and out["final_step"] == 1
+    for key in ("device_trace", "events", "timeline"):
+        assert os.path.getsize(out[key]) > 0 and out[key].startswith(prof)
