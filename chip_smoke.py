@@ -14,8 +14,12 @@ the paper's ResNet-32 trained elastically and through the trace-driven
 gym; the full-width
 forwards of zamba2-1.2b (38 Mamba-2 layers, d_model 2048, 64 SSM heads x
 P 64, N 64, a shared attention block every 6 layers) and rwkv6-7b (32
-layers, d_model 4096, 64 heads x 64, d_ff 14336); and serving both. In
-phases that each print their name and ``ok``:
+layers, d_model 4096, 64 heads x 64, d_ff 14336); serving both; and the
+MoE family's moonshot-v1-16b-a3b (48 layers, d_model 2048, 16 heads = 16
+KV heads of 128, 64 experts of width 1408, top-6, 2 shared experts, a
+dense first layer, vocab 163840; 56.8 GB of bf16 weights), its forward
+and serving it. In phases that each print their name, ``ok`` and their
+wall time:
 
 1. environment: torch, CUDA, the card and its power limit;
 2. build: compile the four kernels from ``src/repro_torch`` with nvcc,
@@ -23,11 +27,13 @@ phases that each print their name and ``ok``:
 3. kernel-vs-plain: the decode kernel against its plain PyTorch version
    on the serve shape, a long cache, a window, one KV head, ragged
    lengths (0 and past the cache), zamba2's shared block (H = KV = 32,
-   D = 64) and the tensor-core path's tile edges (S = 65, G = 48 with a
+   D = 64), moonshot's decode cell (H = KV = 16, D = 128; full and ragged
+   lengths) and the tensor-core path's tile edges (S = 65, G = 48 with a
    window), in bf16 and fp32, with the split plan, one split and three;
 4. flash-vs-plain: the flash kernel against its plain version on the
    starcoder2 forward shape, a gemma3 local layer, MQA, a ragged length,
-   non-causal attention, D=64, zamba2's shared block and the wgmma
+   non-causal attention, D=64, zamba2's shared block, moonshot's
+   forward (B = 4, S = 2048, H = KV = 16, D = 128) and the wgmma
    kernel's tile edges (S = 127, 129, a window that cuts a tile, and
    Sq = 129 against Sk = 127 at D = 64), in bf16 and fp32; and, at
    D = 64, where P meets V in fp16, V far beyond either end of fp16's
@@ -82,8 +88,10 @@ phases that each print their name and ``ok``:
     ``evaluate_accuracy`` of the trained weights through the flash kernel
     and through the plain attention;
 14. train-parity: three ``Trainer.fit`` steps of reduced starcoder2-3b,
-    gemma3-27b, zamba2-1.2b and rwkv6-7b in float32 on the card against
-    the same steps on the CPU, from the same numpy weights;
+    gemma3-27b, zamba2-1.2b, rwkv6-7b, moonshot-v1-16b-a3b and
+    arctic-480b in float32 on the card against the same steps on the
+    CPU, from the same numpy weights; the MoE models' router aux loss
+    nonzero and equal on both;
 15. elastic: ``launch.train --full --elastic`` of starcoder2-3b (through
     its ``run``): 2 slots, a worker joining at step 1, slot 0 warned at
     step 2 (a fast save of the whole AdamW state into ``CKPT_DIR``) and
@@ -139,14 +147,27 @@ phases that each print their name and ``ok``:
     and paged decode steps in turns, as in phase 9); zamba2 decode logits
     through the kernel and the plain attention must agree, in float32
     within 1e-3 and in bf16 as the forwards' gate says;
-22. timing: device time of each kernel, its plain version and, where
+22. moe-forward: moonshot at its published widths, B=4, S=2048: at a
+    depth of 4 (1 dense + 3 MoE layers) the float32 and bf16 gates of
+    phase 19; then all 48 layers in bf16 through ``launch.serve``'s
+    ``build``: finite logits, a positive aux, flash 48 times, the
+    weights' bytes and peak memory, and a profiled device breakdown into
+    the MoE einsums, the routing glue, the rest of the MoE FFN, flash and
+    the rest;
+23. moe-serve: ``launch.serve --no-reduced --arch moonshot-v1-16b-a3b``
+    through its ``run`` (phase 8's requests), then a revocation and a
+    drain (migrated tokens equal), again with the paged cache (the dense
+    tokens, pages shipped), decode attention 48 times a cell, and dense
+    and paged decode steps in turns (wall, device-busy share);
+24. timing: device time of each kernel, its plain version and, where
     one PyTorch call computes the same function,
     ``scaled_dot_product_attention`` (the library yardstick, which the
     port never calls) beside the kernel's bound and the share of it
     reached: decode at the serve shape, a long cache and zamba2's decode
-    cell (SDPA with the length mask and, since the lengths are full,
-    without one); flash at the starcoder2 forward, a gemma3 local layer
-    and zamba2's shared block; the SSD scan at zamba2's forward; WKV at
+    cell and moonshot's (SDPA with the length mask and, since the
+    lengths are full, without one); flash at the starcoder2 forward, a
+    gemma3 local layer, zamba2's shared block and moonshot's forward;
+    the SSD scan at zamba2's forward; WKV at
     rwkv6's forward in fp32 (fused views, nonzero s0) and as the model
     calls it (bf16 r, k, v and o, zero s0).
 
@@ -195,6 +216,9 @@ SHAPES = {
     "ragged": (4, 24, 2, 512, 128, [0, 1, 333, 700], 0),
     "zamba2": (4, 32, 32, 512, 64, [512, 300, 17, 0], 0),  # shared block
     "zamba2_decode": (4, 32, 32, 512, 64, None, 0),  # its decode cell
+    # moonshot-v1-16b-a3b's decode cell: H = KV = 16 (no GQA) at D = 128
+    "moonshot": (4, 16, 16, 512, 128, None, 0),
+    "moonshot_ragged": (4, 16, 16, 512, 128, [512, 300, 17, 0], 0),
     # the tensor-core path's tile edges (64 keys): S = 64 + 1 with a
     # length of 64 - 1, and G = 48 with a window that cuts tiles
     "edge65": (2, 24, 2, 65, 128, [65, 63], 0),
@@ -209,6 +233,7 @@ FLASH_SHAPES = {
     "noncausal": (2, 1000, 1000, 24, 2, 128, False, 0),
     "d64": (2, 1024, 1024, 16, 4, 64, True, 256),
     "zamba2": (4, 2048, 2048, 32, 32, 64, True, 0),    # shared block
+    "moonshot": (4, 2048, 2048, 16, 16, 128, True, 0),  # moonshot forward
     # the wgmma kernel's tile edges (128 queries x 128 keys)
     "edge127": (2, 127, 127, 8, 2, 128, True, 0),
     "edge129": (2, 129, 129, 8, 2, 128, False, 0),
@@ -280,12 +305,18 @@ CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 RESUME_TOL = 1e-4            # relative, per-step loss
 CKPT_PARAM_TOL = 1e-4        # absolute, every float32 master after 3 steps
 RESNET_BF16_TOL = 2e-2       # the run's bf16 first loss vs float64
-PARITY_ARCHS = ("starcoder2-3b", "gemma3-27b", "zamba2-1.2b", "rwkv6-7b")
+PARITY_ARCHS = ("starcoder2-3b", "gemma3-27b", "zamba2-1.2b", "rwkv6-7b",
+                "moonshot-v1-16b-a3b", "arctic-480b")
 RECURRENT_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
 SERVE_ARGS = ["--no-reduced", "--requests", "8", "--max-batch", "4",
               "--max-len", "512", "--prompt-len", "16",
               "--max-new-tokens", "32", "--seed", "0"]
 PAGED_ARGS = ["--cache-impl", "paged", "--page-size", "16"]
+# the MoE phases: moonshot-v1-16b-a3b at its published widths, its forward
+# gated at a depth of 4 (1 dense + 3 MoE layers), then served at 48
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_REDUCED_DEPTH = 4
+MOE_SERVE_ARGS = SERVE_ARGS + ["--arch", MOE_ARCH]
 # the serve-fleet phase: a serve-bursty trace written with the port's
 # RequestTrace.to_jsonl, replayed through launch.serve at full width
 FLEET_DIR = os.path.join(ROOT, "build", "chip_smoke_fleet")
@@ -531,10 +562,10 @@ def device_ms(torch, fn, n_inputs, calls=64, reps=5):
 
 def serve_and_migrate(torch, serve, args, model, params, card_line,
                       expect):
-    """The serve entry point's engine on ``args``: an undisturbed run of
-    ``args.requests`` requests, then the same requests again with a hard
-    revocation of slot 1 and a drain that migrates the in-flight work to
-    a second engine. The migrated requests must give the undisturbed
+    """The serve entry point on ``args``: an undisturbed run of
+    ``args.requests`` requests through ``launch.serve``'s ``run``, then
+    the same requests again on its engine with a hard revocation of slot
+    1 and a drain that migrates the in-flight work to a second engine. The migrated requests must give the undisturbed
     tokens. ``expect`` lists (wrapper, launches per decode cell): every
     count is set to 0 first, and after the undisturbed run and after all
     runs it must be that many per decode cell. On a paged engine
@@ -546,19 +577,9 @@ def serve_and_migrate(torch, serve, args, model, params, card_line,
     cfg = model.cfg
     for fn, _ in expect:
         fn.launches = 0                           # the path's run starts
-    base = serve.make_engine(args, model, params)
-    reqs = serve.make_requests(args, cfg.vocab_size)
-    step_ms, t0 = [], time.monotonic()
-    for r in reqs:
-        base.submit(r)
-    while base.has_work():
-        n0, s0 = base.tokens_decoded, time.monotonic()
-        base.step()
-        torch.cuda.synchronize()
-        if base.tokens_decoded > n0:
-            step_ms.append((time.monotonic() - s0) * 1e3)
+    t0 = time.monotonic()
+    summary, reqs, base = serve.run(args, model, params)
     wall = time.monotonic() - t0
-    summary = serve.summarize(args, base, reqs, None, wall)
     expected = {r.rid: r.generated for r in reqs}
     check(all(r.done for r in reqs), "undisturbed run left work")
     for fn, per_cell in expect:
@@ -566,11 +587,11 @@ def serve_and_migrate(torch, serve, args, model, params, card_line,
               f"the undisturbed run launched {fn.__name__} {fn.launches} "
               f"times, not {per_cell} per decode cell x {base.decode_cells}")
     tps = base.tokens_decoded / wall
-    mean_step = sum(step_ms) / len(step_ms)
+    # run does not time the steps one by one (paged_step_compare does)
+    cell_ms = wall * 1e3 / base.decode_cells
     print(f"  {cfg.name} undisturbed: {base.tokens_decoded} tokens in "
-          f"{wall:.2f} s = {tps:.1f} tokens/s, mean decode step "
-          f"{mean_step:.2f} ms over {len(step_ms)} steps, "
-          f"{base.decode_cells} decode cells [{card_line}]")
+          f"{wall:.2f} s = {tps:.1f} tokens/s, {cell_ms:.2f} ms of wall a "
+          f"decode cell, {base.decode_cells} decode cells [{card_line}]")
     print("  summary " + json.dumps(summary))
 
     first = serve.make_engine(args, model, params)
@@ -611,13 +632,14 @@ def serve_and_migrate(torch, serve, args, model, params, card_line,
         check(fn.launches == per_cell * cells,
               f"the main path launched {fn.__name__} {fn.launches} times, "
               f"not {per_cell} per decode cell x {cells}")
-    return ({"tokens_per_s": tps, "decode_step_ms_mean": mean_step,
-             "decode_steps": len(step_ms),
+    return ({"tokens_per_s": tps, "wall_ms_per_decode_cell": cell_ms,
              "decode_cells": base.decode_cells, "wall_s": wall,
              "migrated": len(migrated), "cells": cells, "tokens_equal": same,
              "tokens_replayed": replayed,
              "pages_shipped": second.pages_shipped,
-             "requests_imported": second.requests_imported}, expected)
+             "requests_imported": second.requests_imported,
+             "launches": {fn.__name__: fn.launches for fn, _ in expect}},
+            expected)
 
 
 def step_walls(torch, eng, n):
@@ -855,9 +877,13 @@ def forward_check(torch, model, plain_model, params, batch, expect,
     for (fn, n, _), got_n in zip(expect, launches):
         check(got_n == n, f"{got_n} {fn.__name__} launches in one "
                           f"{cfg.name} forward, expected {n}")
+    # the MoE router's aux loss is positive; the other families' zero
     check(torch.isfinite(got.float()).all().item()
           and tuple(got.shape) == (B, S, cfg.vocab_size)
-          and float(aux) == 0.0, "forward output malformed")
+          and math.isfinite(float(aux))
+          and (float(aux) > 0 if cfg.family == "moe"
+               else float(aux) == 0.0),
+          "forward output malformed")
     rel16 = rel(got, want)
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     counts = ", ".join(f"{fn.__name__} {n}" for (fn, _, _), n
@@ -1477,6 +1503,203 @@ def gym_phase(torch, card_line):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# The MoE family: moonshot-v1-16b-a3b at its published widths
+# ---------------------------------------------------------------------------
+
+def moe_breakdown(torch, model, params, batch, card_line):
+    """One forward under torch.profiler, with ``ffn.apply_moe`` and
+    ``ffn._route`` wrapped in ``record_function`` ranges for this forward
+    only. Each device kernel is charged to the CPU op that launched it,
+    and so to the ranges and ops around that op: the MoE einsums (under an
+    ``aten::einsum`` in the MoE FFN), the routing glue (under ``_route``:
+    the top-k sort, the one-hot cumsum of positions, the ``index_add_``
+    scatter; and the ``gather`` back to token order), the rest of the MoE
+    FFN (router, softmax, SiLU, weighting, the shared experts, aux),
+    flash (by kernel name) and the rest of the model (attention
+    projections, norms, embedding, unembedding). Returns ms by class."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import ffn
+
+    def marked(name, fn):
+        def wrapper(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapper
+
+    with patched(ffn, apply_moe=marked("moe.ffn", ffn.apply_moe),
+                 _route=marked("moe.route", ffn._route)):
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            model.apply(params, batch)
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+    events = prof.events()
+    # the ranges also appear on the device's timeline, spanning their
+    # kernels: only kernels count
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name not in ("moe.ffn", "moe.route")]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    parts = {"moe_einsums": 0.0, "routing_glue": 0.0, "moe_other": 0.0}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, up = [], e
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        if "moe.ffn" not in chain:
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        if "moe.route" in chain or "aten::gather" in chain:
+            parts["routing_glue"] += ms
+        elif "aten::einsum" in chain:
+            parts["moe_einsums"] += ms
+        else:
+            parts["moe_other"] += ms
+    flash = [e for e in kern if "flash_fwd" in e.name]
+    parts["flash"] = sum(e.time_range.elapsed_us() for e in flash) / 1e3
+    parts["rest"] = busy - sum(parts.values())
+    by_name = {}
+    for e in kern:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+    print(f"  profiled forward: device busy {busy:.2f} ms of {wall:.1f} ms "
+          f"wall (profiled), {len(kern)} device launches; " + ", ".join(
+              f"{k} {v:.2f} ms ({v / busy:.3f})" for k, v in parts.items())
+          + f"; flash launches {len(flash)} [{card_line}]")
+    for name, (tot, n) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {tot / 1e3:8.2f} ms  x{n:<5d} {name[:70]}")
+    check(parts["moe_einsums"] > 0 and parts["routing_glue"] > 0
+          and parts["rest"] > 0, f"the breakdown charged no kernel to a "
+                                 f"class: {parts}")
+    return {"device_busy_ms": busy, "profiled_wall_ms": wall,
+            "device_launches": len(kern), "flash_launches": len(flash),
+            **{f"{k}_ms": v for k, v in parts.items()}}
+
+
+def moe_forward_phase(torch, serve, card_line):
+    """moonshot-v1-16b-a3b at its published widths (d_model 2048, 16 heads
+    = 16 KV heads of 128, 64 experts of width 1408, top-6, 2 shared
+    experts, a dense first layer of width 11264, vocab 163840), B=4,
+    S=2048. At a depth of 4 layers (1 dense + 3 MoE) ``forward_check``
+    with its float32 gate: kernels against plain paths within 1e-3 x
+    max|logit| in float32, and the bf16 kernel path no further from the
+    float32 logits than 1.5x the plain bf16 path (a router's top-k flips
+    on a rounding difference and moves a token by O(1), so bf16 paths
+    are compared against the float32 floor). Then the whole 48 layers in
+    bf16 through ``launch.serve``'s ``build`` (the weights moe-serve
+    serves): finite logits, a positive aux, flash once per layer, the
+    weights' bytes and peak memory, and ``moe_breakdown``. Returns the
+    served model, its parameters and stats."""
+    from repro_torch.config import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models.builder import build_model
+    from repro_torch.serving import with_impls
+    from repro_torch.tree import tree_leaves
+    wr = kernel_wrappers()
+    flash, decode = wr["flash_attention"], wr["decode_attention"]
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_REDUCED_DEPTH)
+    model = build_model(cfg, "cuda")
+    t0 = time.monotonic()
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    check(cfg.attn_impl == "cuda" and cfg.d_model == 2048
+          and cfg.num_heads == cfg.num_kv_heads == 16 and cfg.head_dim == 128
+          and (cfg.num_experts, cfg.top_k, cfg.d_ff) == (64, 6, 1408)
+          and cfg.first_dense_layers == 1 and cfg.vocab_size == 163840,
+          "not moonshot at its published widths")
+    n_bytes = sum(t.numel() * t.element_size()
+                  for _, t in tree_leaves(params))
+    print(f"  {cfg.name} at depth {cfg.num_layers} (1 dense + "
+          f"{cfg.num_layers - 1} MoE): weights {n_bytes / 1e9:.2f} GB "
+          f"{cfg.dtype}, init {time.monotonic() - t0:.1f} s")
+    batch = make_batch(cfg, *FORWARD_BATCH, seed=0)
+    reduced = forward_check(
+        torch, model, with_impls(model, attn_impl="torch"), params, batch,
+        [(flash, cfg.num_layers, "flash_fwd"),
+         (decode, 0, "decode_split_kernel")], card_line, fp32_gate=True)
+    del model, params
+    release(torch)
+
+    args = serve.parse_args(MOE_SERVE_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model, params = serve.build(args)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    cfg = model.cfg
+    check(cfg.num_layers == 48 and cfg.d_model == 2048
+          and cfg.attn_impl == "cuda", "not full-width moonshot")
+    n_bytes = sum(t.numel() * t.element_size()
+                  for _, t in tree_leaves(params))
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    weights_peak = torch.cuda.max_memory_allocated()
+    print(f"  {cfg.name} full width: {cfg.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters, weights {n_bytes / 1e9:.2f} GB "
+          f"{cfg.dtype}, init {init_s:.1f} s, peak device memory "
+          f"{weights_peak / 1e9:.2f} GB [{card_line}]")
+    zero_counts()                                 # the path's run starts
+    with torch.no_grad():
+        t0 = time.monotonic()
+        logits, aux = model.apply(params, batch)
+        torch.cuda.synchronize()
+        fwd_ms = (time.monotonic() - t0) * 1e3
+    counts = read_counts()                        # and ends
+    peak = torch.cuda.max_memory_allocated()
+    B, S = FORWARD_BATCH
+    finite = bool(torch.isfinite(logits).all())
+    print(f"  full-depth forward B={B} S={S} bf16: {fwd_ms:.1f} ms wall, "
+          f"launches {counts}, aux {float(aux):.4f}, logits finite "
+          f"{finite}, max|logit| {float(logits.float().abs().max()):.2f}; "
+          f"peak device memory {peak / 1e9:.2f} GB [{card_line}]")
+    check(finite and tuple(logits.shape) == (B, S, cfg.vocab_size)
+          and math.isfinite(float(aux)) and float(aux) > 0,
+          "full-depth moonshot forward output malformed")
+    check(counts["flash_attention"] == cfg.num_layers
+          and counts["decode_attention"] == 0,
+          f"full-depth moonshot forward launches {counts}, not "
+          f"{cfg.num_layers} flash")
+    del logits
+    breakdown = moe_breakdown(torch, model, params, batch, card_line)
+    del batch
+    release(torch)
+    return model, params, {
+        "reduced_depth": reduced, "params": n_params, "weight_bytes": n_bytes,
+        "init_s": init_s, "peak_after_init_bytes": weights_peak,
+        "forward_peak_bytes": peak, "forward_wall_ms": fwd_ms,
+        "flash_launches": counts["flash_attention"], "aux": float(aux),
+        "breakdown": breakdown}
+
+
+def moe_serve_phase(torch, serve, model, params, card_line):
+    """``launch.serve --no-reduced --arch moonshot-v1-16b-a3b`` through its
+    ``run``: 8 requests of 16 + 32 tokens, ``max_batch`` 4, ``max_len``
+    512, undisturbed, then a hard revocation and a drain onto a second
+    engine (the migrated tokens must equal the undisturbed ones); the
+    same with the paged cache (the dense run's tokens, pages shipped);
+    decode attention once per layer per decode cell (48) and no flash;
+    then dense and paged decode steps in turns (wall and device-busy
+    share)."""
+    args = serve.parse_args(MOE_SERVE_ARGS)
+    wr = kernel_wrappers()
+    expect = [(wr["decode_attention"], model.cfg.num_layers),
+              (wr["flash_attention"], 0)]
+    dense, dense_tokens = serve_and_migrate(
+        torch, serve, args, model, params, card_line, expect)
+    pargs = serve.parse_args(MOE_SERVE_ARGS + PAGED_ARGS)
+    paged, paged_tokens = serve_and_migrate(
+        torch, serve, pargs, model, params, card_line, expect)
+    check(paged_tokens == dense_tokens, "moonshot's paged engine's tokens "
+                                        "differ from the dense one's")
+    compare = paged_step_compare(torch, serve, model, params, card_line,
+                                 ["--arch", MOE_ARCH])
+    return {"serve": dense, "serve_paged": paged, "step_compare": compare}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1707,7 +1930,6 @@ def main() -> int:
         serve_stats, dense_tokens = serve_and_migrate(
             torch, serve, args, model, params, card_line,
             [(decode_attention, cfg.num_layers), (flash_attention, 0)])
-        mean_step = serve_stats["decode_step_ms_mean"]
         record["launches"] = decode_attention.launches
 
     with phase("serve-paged"):
@@ -1764,8 +1986,9 @@ def main() -> int:
               f"decode attention device launches per step {attn} "
               f"({splits} splits)")
         # the profiler slows the host loop, so the idle share is taken
-        # against the unprofiled mean decode step of the serve phase
-        idle = 1 - busy / mean_step
+        # against the unprofiled median dense decode step of serve-paged
+        unprofiled = paged_stats["step_compare"]["dense"]["wall_ms_median"]
+        idle = 1 - busy / unprofiled
         profile_stats = {"profiled_step_ms": step,
                          "device_busy_ms_per_step": busy,
                          "device_idle_share": idle,
@@ -1773,7 +1996,8 @@ def main() -> int:
                          "decode_attention_ms_per_step": {
                              k: t for k, (t, _) in attn.items()}}
         print(f"  decode step: device busy {busy:.3f} ms of "
-              f"{mean_step:.2f} ms (unprofiled; {step:.2f} ms profiled), "
+              f"{unprofiled:.2f} ms (unprofiled median; {step:.2f} ms "
+              f"profiled), "
               f"idle share {idle:.3f}, {len(kernels) / n_steps:.0f} device "
               f"launches/step [{card_line}]")
         for name, (tot, n) in top:
@@ -1893,14 +2117,17 @@ def main() -> int:
             host = build_model(pcfg, "cpu")
             tree = tree_map(lambda t: t.numpy(), host.init(
                 host.generator(0), dtype=torch.float32))
-            logs = {}
+            logs, auxes = {}, {}
             for dev in ("cuda", "cpu"):
                 m = build_model(pcfg, dev)
                 ds = ShardedDataset(pcfg, global_batch=4, seq_len=64, seed=1,
                                     device=dev)
                 tr = Trainer(m, tcfg, ds, log_every=1)
+                auxes[dev] = []
                 tr.fit(init_state(m, tcfg, params=params_from_numpy(
-                    tree, pcfg, dev, dtype=torch.float32)), 3)
+                    tree, pcfg, dev, dtype=torch.float32)), 3,
+                    on_step=lambda _, mt, a=auxes[dev]: a.append(
+                        float(mt["aux"])))
                 logs[dev] = tr.metrics_log
             worst_rel = 0.0
             for a, b in zip(logs["cuda"], logs["cpu"]):
@@ -1915,6 +2142,19 @@ def main() -> int:
                     f"{worst_rel:.2e} (tol 1e-4)")
             check(len(logs["cuda"]) == 3 and worst_rel <= 1e-4,
                   f"{arch}: training on the card and on the CPU disagree")
+            if pcfg.family == "moe":
+                # the router's aux loss is in the total: nonzero, and the
+                # same on both devices
+                aux_rel = max(abs(a - b) / b for a, b in
+                              zip(auxes["cuda"], auxes["cpu"]))
+                print(f"    aux cuda " + ", ".join(
+                    f"{a:.6f}" for a in auxes["cuda"]) + " / cpu " +
+                    ", ".join(f"{a:.6f}" for a in auxes["cpu"]) +
+                    f"; worst relative difference {aux_rel:.2e} "
+                    f"(tol 1e-4)")
+                check(all(a > 0 for a in auxes["cuda"] + auxes["cpu"])
+                      and aux_rel <= 1e-4,
+                      f"{arch}: the router aux is zero or differs")
             parity[arch] = worst_rel
 
     with phase("elastic"):
@@ -2002,11 +2242,26 @@ def main() -> int:
         del recurrent, rmodel, rparams
         release(torch)
 
+    # every earlier phase's model is gone: moonshot's 56.8 GB of bf16
+    # weights leave ~20 GB of the card
+    with phase("moe-forward"):
+        mmodel, mparams, moe_stats = moe_forward_phase(torch, serve,
+                                                       card_line)
+        flash_record["moonshot_launches"] = moe_stats["flash_launches"]
+
+    with phase("moe-serve"):
+        moe_stats.update(moe_serve_phase(torch, serve, mmodel, mparams,
+                                         card_line))
+        record["moonshot_launches"] = moe_stats["serve"]["launches"][
+            "decode_attention"]
+        del mmodel, mparams
+        release(torch)
+
     with phase("timing"):
         # decode: the serve cell's shape, a long cache, zamba2's decode
         # cell (H = KV = 32, D = 64), all at full lengths
         timings = []
-        for name in ("serve", "long", "zamba2_decode"):
+        for name in ("serve", "long", "zamba2_decode", "moonshot"):
             shape = SHAPES[name]
             B, H, KV, S, D, _, win = shape
             per_copy = 2 * B * S * KV * D * 2
@@ -2066,7 +2321,7 @@ def main() -> int:
         # flash: the starcoder2 forward, a gemma3 local layer, zamba2's
         # shared block
         flash_timings = []
-        for name in ("forward", "gemma3_window", "zamba2"):
+        for name in ("forward", "gemma3_window", "zamba2", "moonshot"):
             shape = FLASH_SHAPES[name]
             B, Sq, Sk, H, KV, D, causal, win = shape
             per_copy = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
@@ -2190,7 +2445,7 @@ def main() -> int:
                           "checkpoint": checkpoint_stats,
                           "resnet32": resnet_stats, "gym": gym_stats,
                           "recurrent": recurrent_stats,
-                          "card": card_line}))
+                          "moe": moe_stats, "card": card_line}))
 
     print(json.dumps({"kernels": [record, flash_record, ssd_record,
                                   wkv_record]}))

@@ -1,5 +1,5 @@
-"""Configuration for the PyTorch port: the fields of the dense, hybrid
-(zamba2), recurrent (rwkv6) and resnet families, and the training
+"""Configuration for the PyTorch port: the fields of the dense, MoE,
+hybrid (zamba2), recurrent (rwkv6) and resnet families, and the training
 configuration.
 
 A copy of the part of ``repro.config`` that the ported serving and
@@ -49,6 +49,15 @@ class ModelConfig:
     # --- local/global attention pattern (gemma3) ---------------------------
     sliding_window: int = 0        # 0 = every layer global
     global_every: int = 0          # e.g. 6 -> layers 5,11,... are global
+
+    # --- MoE ---------------------------------------------------------------
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0    # moonlight/deepseek-style always-on experts
+    dense_ff: int = 0              # width of dense-residual MLP (arctic) or
+                                   # dense first layer (moonshot)
+    first_dense_layers: int = 0    # moonshot: first k layers use dense FFN
+    router_aux_coef: float = 0.001
 
     # --- SSM / Mamba2 (zamba2) ---------------------------------------------
     ssm_state: int = 0             # N, state dimension per head

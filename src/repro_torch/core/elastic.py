@@ -77,7 +77,10 @@ def _make_row_weighted_loss(model: Model, tcfg: TrainConfig) -> Callable:
         else:
             w = _token_weights(cfg, flat, logits.shape[1]) * row_w[:, None]
             loss = cross_entropy(logits, flat["labels"], w)
-        return loss, {"loss": loss, "aux": aux}
+        # the MoE aux covers the whole flat batch, masked rows included,
+        # as in the reference
+        total = loss + cfg.router_aux_coef * aux
+        return total, {"loss": loss, "aux": aux}
 
     return loss_fn
 

@@ -3,9 +3,11 @@
 
 Batched decode on the slot-based continuous-batching engine, on the card
 by default (``--device cpu`` runs the plain PyTorch paths on the CPU).
-Serves the dense family (the default, starcoder2-3b), zamba2-1.2b
-(hybrid) and rwkv6-7b (recurrent); ``--reduced`` is on by default and
-``--no-reduced`` serves the full-width model. Parameters are drawn from
+Serves the dense family (the default, starcoder2-3b), the MoE family
+(moonshot-v1-16b-a3b, 56.8 GB of bf16 weights at full width, which one
+80 GB card holds; arctic-480b only reduced, as 957 GB fit neither one card
+nor four), zamba2-1.2b (hybrid) and rwkv6-7b (recurrent); ``--reduced``
+is on by default and ``--no-reduced`` serves the full-width model. Parameters are drawn from
 ``--seed``. Two workload modes:
 
 - default: ``--requests N`` synthetic prompts submitted up front (more

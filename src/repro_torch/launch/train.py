@@ -19,9 +19,14 @@ None of the port's kernels has a backward (the reference's Pallas
 kernels have none either), so the differentiated forward runs the plain
 paths, ``attn_impl``, ``ssm_impl`` and ``rwkv_impl`` all ``"torch"``
 (the q-chunked attention, the chunked SSD form, the sequential WKV
-scan), on every device; the summary says so. Full-width training of
-rwkv6-7b does not fit one card (about 120 GB of float32 masters and
-moments).
+scan), on every device; the summary says so. ``--arch`` takes every
+language-model family the port runs: dense, MoE (``moonshot-v1-16b-a3b``,
+``arctic-480b``; the loss adds ``router_aux_coef`` x the router's aux
+loss), hybrid and recurrent, and ``resnet32-cifar10``. Full-width
+training of rwkv6-7b does not fit one card (about 120 GB of float32
+masters and moments), nor does that of either MoE model (moonshot's
+28.4 B parameters are 454 GB of AdamW state; arctic's 478.6 B fit
+neither one card nor four even in bf16).
 
 ``--gym`` replays a market trace (``--trace``) through the training gym:
 an online policy (``--policy``) plans the fleet, the realized membership

@@ -6,6 +6,9 @@ cell that serving runs for every prompt and generated token.
 Families ported:
 - ``dense``  : decoder-only (GQA/MQA/MHA), optional gemma3-style
                local:global sliding-window pattern;
+- ``moe``    : decoder-only with the MoE FFN (``ffn.apply_moe``);
+               moonshot's dense first layer(s) (``dense_layers``) and
+               arctic's parallel dense-residual branch;
 - ``hybrid`` : zamba2 — Mamba2 backbone with a *weight-tied shared*
                attention block invoked every ``shared_attn_every`` layers;
 - ``ssm``    : rwkv6 — attention-free time-mix / channel-mix.
@@ -39,17 +42,16 @@ from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as M
-from repro_torch.tree import tree_map, tree_unbind
+from repro_torch.tree import tree_leaves, tree_map, tree_unbind
 
 Tree = Dict[str, Any]
 
-PORTED = ("dense", "hybrid", "ssm")
+PORTED = ("dense", "moe", "hybrid", "ssm")
 # Families the port does not serve yet, and the ROADMAP.md Queue 1 item
 # that ports each.
 _UNPORTED = {
-    "moe": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
-    "vlm": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
-    "encdec": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
+    "vlm": "Queue 1 item 6 (multimodal and encoder-decoder)",
+    "encdec": "Queue 1 item 6 (multimodal and encoder-decoder)",
 }
 
 
@@ -85,6 +87,27 @@ def _init_dense_layer(gen, cfg: ModelConfig, dtype, device) -> Tree:
     }
 
 
+def _init_moe_layer(gen, cfg: ModelConfig, dtype, device) -> Tree:
+    return {
+        "ln1": L.init_rms(gen, cfg.d_model, device),
+        "attn": A.init_attention(gen, cfg, dtype=dtype, device=device),
+        "ln2": L.init_rms(gen, cfg.d_model, device),
+        "moe": F.init_moe(gen, cfg, dtype=dtype, device=device),
+    }
+
+
+def _init_moe_dense_layer(gen, cfg: ModelConfig, dtype, device) -> Tree:
+    """moonshot: the first layer(s) use a plain dense MLP of width
+    ``dense_ff``."""
+    return {
+        "ln1": L.init_rms(gen, cfg.d_model, device),
+        "attn": A.init_attention(gen, cfg, dtype=dtype, device=device),
+        "ln2": L.init_rms(gen, cfg.d_model, device),
+        "mlp": F.init_mlp(gen, cfg.d_model, cfg.dense_ff, True, dtype=dtype,
+                          device=device),
+    }
+
+
 def _init_mamba_layer(gen, cfg: ModelConfig, dtype, device) -> Tree:
     return {
         "ln": L.init_rms(gen, cfg.d_model, device),
@@ -102,10 +125,19 @@ def _init_rwkv_layer(gen, cfg: ModelConfig, dtype, device) -> Tree:
 
 
 def _stack(init_fn, n: int) -> Tree:
-    """``n`` layers from ``init_fn()``, every leaf stacked on a new
-    leading axis."""
-    return tree_map(lambda *xs: torch.stack(xs), *[init_fn()
-                                                   for _ in range(n)])
+    """``n`` layers from ``init_fn()``, drawn in order, every leaf stacked
+    on a new leading axis. Each stacked leaf is allocated once and filled
+    layer by layer, so the peak is the stack and two layers (stacking a
+    list of all the layers would hold them twice: 113 GB for full-width
+    moonshot in bf16)."""
+    layer = init_fn()
+    out = tree_map(lambda t: t.new_empty((n, *t.shape)), layer)
+    for i in range(n):
+        if i:
+            layer = init_fn()
+        for (_, dst), (_, src) in zip(tree_leaves(out), tree_leaves(layer)):
+            dst[i].copy_(src)
+    return out
 
 
 def init_params(cfg: ModelConfig, generator, device,
@@ -127,6 +159,14 @@ def init_params(cfg: ModelConfig, generator, device,
         stacks["layers"] = _stack(
             lambda: _init_dense_layer(generator, cfg, dt, device),
             cfg.num_layers)
+    elif fam == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            stacks["dense_layers"] = _stack(
+                lambda: _init_moe_dense_layer(generator, cfg, dt, device), nd)
+        stacks["layers"] = _stack(
+            lambda: _init_moe_layer(generator, cfg, dt, device),
+            cfg.num_layers - nd)
     elif fam == "hybrid":
         cad = cfg.shared_attn_every
         n_blocks, leftover = divmod(cfg.num_layers, cad)
@@ -184,6 +224,28 @@ def _dense_trunk(params: Tree, cfg: ModelConfig, x: torch.Tensor,
     for lp, win in zip(layers, _window_schedule(cfg, len(layers))):
         x = _run(_dense_layer, remat, x, lp, cfg, win, positions, causal)
     return x
+
+
+def _moe_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig,
+               positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = _attn_block(lp, x, cfg, window=0, positions=positions)
+    return _moe_block(lp, x, cfg)
+
+
+def _moe_trunk(params: Tree, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, remat: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """moonshot's dense first layer(s), then the MoE layers, every layer
+    global; returns (x, the MoE layers' summed aux, float32)."""
+    if "dense_layers" in params:
+        for lp in tree_unbind(params["dense_layers"]):
+            x = _run(_dense_layer, remat, x, lp, cfg, 0, positions, True)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in tree_unbind(params["layers"]):
+        x, a = _run(_moe_layer, remat, x, lp, cfg, positions)
+        aux = aux + a
+    return x, aux
 
 
 def _run(fn, remat: bool, *args):
@@ -254,22 +316,25 @@ def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Full-sequence forward. batch = {tokens: (B, S)}.
 
     Returns (logits (B, S, V) in ``cfg.dtype``, aux): ``aux`` is the MoE
-    auxiliary loss, a float32 zero for the ported families, as in the
-    reference."""
+    layers' summed router auxiliary loss (float32), zero for the other
+    families, as in the reference."""
     require_ported(cfg)
     dt = L.torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens, dt)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "dense":
         x = _dense_trunk(params, cfg, x, pos, remat=remat)
+    elif cfg.family == "moe":
+        x, aux = _moe_trunk(params, cfg, x, pos, remat=remat)
     elif cfg.family == "hybrid":
         x = _hybrid_trunk(params, cfg, x, pos, remat=remat)
     else:
         x = _rwkv_trunk(params, cfg, x, remat=remat)
     x = L.rms_norm(x, params["final_norm"]["gamma"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg.tie_embeddings)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +347,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     leaf's leading axes are the stacked layer axes, then the batch axis,
     plus the per-row write index ``pos`` (B,) int32.
     - dense: KV leaves (layers, B, Smax, KV, Dh);
+    - moe: the MoE layers' ``kv`` and, with dense first layers, their
+      ``kv_dense``, both laid out as the dense family's;
     - hybrid: Mamba2 ``state`` (float32) and ``conv`` leaves under
       ``blocks`` (n_blocks, cadence, B, ...) and ``tail`` (leftover, B,
       ...), and the shared block's KV per invocation, ``shared_kv``
@@ -304,6 +371,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     pos = zeros((batch,), torch.int32)
     if cfg.family == "dense":
         return {"kv": kv(cfg.num_layers), "pos": pos}
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        c = {"kv": kv(cfg.num_layers - nd), "pos": pos}
+        if nd:
+            c["kv_dense"] = kv(nd)
+        return c
     if cfg.family == "hybrid":
         cad = cfg.shared_attn_every
         n_blocks, leftover = divmod(cfg.num_layers, cad)
@@ -320,6 +393,13 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _mlp_block(lp: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln2"]["gamma"], cfg.norm_eps)
     return x + F.apply_mlp(lp["mlp"], h)
+
+
+def _moe_block(lp: Tree, x: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = L.rms_norm(x, lp["ln2"]["gamma"], cfg.norm_eps)
+    out, aux = F.apply_moe(lp["moe"], h, cfg)
+    return x + out, aux
 
 
 def _decode_attn_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
@@ -367,6 +447,34 @@ def _decode_rwkv_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
     return x + out
 
 
+def _decode_attn_stacks(params: Tree, cfg: ModelConfig, cache: Tree,
+                        x: torch.Tensor, attn) -> torch.Tensor:
+    """The dense and moe families' decode layers: each layer's attention
+    cell ``attn(lp, x, kc, vc, window)`` (dense or paged) over its KV
+    leaves, then its FFN block. moe runs its dense first layers over
+    ``kv_dense`` with the MLP, then the rest over ``kv`` with the MoE
+    block, every layer global, as its forward does."""
+    def mlp(lp, h):
+        return _mlp_block(lp, h, cfg)
+
+    def moe(lp, h):
+        return _moe_block(lp, h, cfg)[0]
+
+    if cfg.family == "dense":
+        stacks = [("layers", "kv", _window_schedule(cfg, cfg.num_layers),
+                   mlp)]
+    else:
+        nd = cfg.first_dense_layers
+        stacks = [("dense_layers", "kv_dense", [0] * nd, mlp)] if nd else []
+        stacks.append(("layers", "kv", [0] * (cfg.num_layers - nd), moe))
+    for name, leaf, windows, ffn in stacks:
+        ks, vs = cache[leaf]["k"], cache[leaf]["v"]
+        for i, (lp, win) in enumerate(zip(tree_unbind(params[name]),
+                                          windows)):
+            x = ffn(lp, attn(lp, x, ks[i], vs[i], win))
+    return x
+
+
 def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
                 batch: Dict[str, torch.Tensor],
                 advance: Optional[torch.Tensor] = None
@@ -386,14 +494,11 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
     require_ported(cfg)
     pos = cache["pos"]
     x = L.embed(params["embed"], batch["tokens"], L.torch_dtype(cfg.dtype))
-    if cfg.family == "dense":
-        ks, vs = cache["kv"]["k"], cache["kv"]["v"]
-        layers = tree_unbind(params["layers"])
-        for i, win in enumerate(_window_schedule(cfg, cfg.num_layers)):
-            lp = layers[i]
-            x = _decode_attn_layer(lp, x, cfg, ks[i], vs[i], pos, win,
-                                   advance)
-            x = _mlp_block(lp, x, cfg)
+    if cfg.family in ("dense", "moe"):
+        x = _decode_attn_stacks(
+            params, cfg, cache, x,
+            lambda lp, x, kc, vc, win: _decode_attn_layer(
+                lp, x, cfg, kc, vc, pos, win, advance))
     elif cfg.family == "hybrid":
         sp = params["shared"]
         blk = cache["blocks"]
@@ -432,6 +537,8 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``(batch, ceil(max_len / page_size))`` int32. Recurrent per-row state
     carries no length axis and stays dense.
     - dense: ``kv`` pools, the page table and ``pos``;
+    - moe: as dense, plus the dense first layers' ``kv_dense`` pools,
+      indexed through the same table;
     - hybrid: the dense cache with ``shared_kv`` as pools, plus the table;
     - ssm: the dense cache plus the table (attention-free, so no pool;
       the table keeps the engine's page accounting uniform)."""
@@ -446,10 +553,17 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
     table = torch.zeros((batch, pages_per_row), dtype=torch.int32,
                         device=device)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.family == "dense":
         return {"kv": kv_pool(cfg.num_layers), "page_table": table,
-                "pos": torch.zeros((batch,), dtype=torch.int32,
-                                   device=device)}
+                "pos": pos}
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        c = {"kv": kv_pool(cfg.num_layers - nd), "page_table": table,
+             "pos": pos}
+        if nd:
+            c["kv_dense"] = kv_pool(nd)
+        return c
     c = init_decode_cache(cfg, batch, max_len, device)
     if cfg.family == "hybrid":
         c["shared_kv"] = kv_pool(num_shared_invocations(cfg))
@@ -501,16 +615,15 @@ def decode_step_paged(params: Tree, cfg: ModelConfig, cache: Tree,
         # no paged leaves: the dense cell already is the paged cell
         return decode_step(params, cfg, cache, batch, mask)
     table = cache["page_table"]
-    pool = cache["kv"] if cfg.family == "dense" else cache["shared_kv"]
+    pool = cache["shared_kv"] if cfg.family == "hybrid" else cache["kv"]
     ks, vs = pool["k"], pool["v"]
     slots = A.page_slots(table, pos, ks.shape[2], rows)
     x = L.embed(params["embed"], batch["tokens"], L.torch_dtype(cfg.dtype))
-    if cfg.family == "dense":
-        layers = tree_unbind(params["layers"])
-        for i, win in enumerate(_window_schedule(cfg, cfg.num_layers)):
-            x = _decode_attn_layer_paged(layers[i], x, cfg, ks[i], vs[i],
-                                         table, pos, win, slots)
-            x = _mlp_block(layers[i], x, cfg)
+    if cfg.family in ("dense", "moe"):
+        x = _decode_attn_stacks(
+            params, cfg, cache, x,
+            lambda lp, x, kc, vc, win: _decode_attn_layer_paged(
+                lp, x, cfg, kc, vc, table, pos, win, slots))
     else:
         sp = params["shared"]
         blk = cache["blocks"]

@@ -90,9 +90,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
             tcfg: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, {loss, aux}). The ported families' aux (MoE router)
-    loss is zero, so the total is the cross-entropy: per token, or per
-    image for resnet."""
+    """(total loss, {loss, aux}): the cross-entropy (per token, or per
+    image for resnet) plus ``router_aux_coef`` x the MoE router's aux
+    loss, which is zero for the other families."""
     cfg = model.cfg
     logits, aux = model.apply(params, batch, remat=tcfg.remat != "none")
     if cfg.family == "resnet":
@@ -100,7 +100,8 @@ def loss_fn(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
     else:
         w = _token_weights(cfg, batch, logits.shape[1])
         loss = cross_entropy(logits, batch["labels"], w)
-    return loss, {"loss": loss, "aux": aux}
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux": aux}
 
 
 def value_and_grad(loss: Callable[[Tree], Tuple[torch.Tensor, Dict]],

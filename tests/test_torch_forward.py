@@ -121,7 +121,8 @@ def test_bf16_serving_weights_and_fp32_masters_agree():
     assert torch.equal(stored, masters)
 
 
-def test_apply_refuses_families_not_ported():
-    cfg = get_config("starcoder2-3b", reduced=True).replace(family="moe")
+@pytest.mark.parametrize("family", ["vlm", "encdec"])
+def test_apply_refuses_families_not_ported(family):
+    cfg = get_config("starcoder2-3b", reduced=True).replace(family=family)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         build_model(cfg, "cpu")

@@ -52,6 +52,7 @@ def test_port_imports_without_jax_or_repro():
     "repro_torch.gym", "repro_torch.gym.gym", "repro_torch.gym.validate",
     "repro_torch.core.staleness", "repro_torch.core.simulator",
     "repro_torch.core.mc", "repro_torch.core.policy",
+    "repro_torch.core.cost", "repro_torch.core.scheduler",
     "repro_torch.optim.compression"])
 def test_planning_and_gym_modules_import_without_jax_or_repro(module):
     """The trace, obs and gym subpackages and the planning modules are

@@ -26,11 +26,12 @@ from repro_torch.models import ffn as F  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.builder import build_model, cache_batch_axes  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ARCHS = ("starcoder2-3b", "qwen2.5-14b", "granite-20b", "gemma3-27b",
-         "zamba2-1.2b", "rwkv6-7b", "resnet32-cifar10")
+         "moonshot-v1-16b-a3b", "arctic-480b", "zamba2-1.2b", "rwkv6-7b",
+         "resnet32-cifar10")
 # implementation selectors: the port's are "cuda" | "torch", the
 # reference's "xla" | "pallas"
 IMPLS = ("attn_impl", "ssm_impl", "rwkv_impl")
@@ -153,6 +154,47 @@ def test_full_width_parameter_layout():
         jax.tree.map(lambda b: b, ref, is_leaf=JL.is_boxed))}
     got = T.init_params(get_config(arch), None, torch.device("meta"))
     assert {p: tuple(x.shape) for p, x in tree_leaves(got)} == want
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in (
+    "starcoder2-3b", "resnet32-cifar10")])
+def test_full_width_parameter_layout_of_every_family(arch):
+    """The other transformer configs' full-width trees, moonshot's
+    ``dense_layers`` and ``moe`` leaves included, have the reference's
+    keys and shapes (both built without allocating)."""
+    ref = jax_build(jax_config(arch)).abstract_params()
+    want = {p: tuple(b.value.shape) for p, b in tree_leaves(
+        jax.tree.map(lambda b: b, ref, is_leaf=JL.is_boxed))}
+    got = T.init_params(get_config(arch), None, torch.device("meta"))
+    assert {p: tuple(x.shape) for p, x in tree_leaves(got)} == want
+
+
+def _stack_by_list(init_fn, n):
+    """The stacking ``transformer._stack`` replaced: every layer drawn
+    into a list, then each leaf ``torch.stack``ed."""
+    return tree_map(lambda *xs: torch.stack(xs),
+                    *[init_fn() for _ in range(n)])
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if a != "resnet32-cifar10"])
+def test_preallocated_stack_gives_the_listed_stack(arch, monkeypatch):
+    """Seed 0 gives bit for bit the parameters it gave when every layer
+    was drawn into a list and stacked: the same draws in the same order,
+    in cfg.dtype and in float32."""
+    cfg = get_config(arch, reduced=True)
+    for dtype in (None, torch.float32):
+        gen = torch.Generator().manual_seed(0)
+        new = T.init_params(cfg, gen, torch.device("cpu"), dtype)
+        with monkeypatch.context() as m:
+            m.setattr(T, "_stack", _stack_by_list)
+            gen = torch.Generator().manual_seed(0)
+            old = T.init_params(cfg, gen, torch.device("cpu"), dtype)
+        got, want = dict(tree_leaves(new)), dict(tree_leaves(old))
+        assert got.keys() == want.keys()
+        for path, t in want.items():
+            assert got[path].dtype == t.dtype and got[path].is_contiguous()
+            assert torch.equal(got[path], t), path
 
 
 def test_port_init_statistics_and_dtypes():
