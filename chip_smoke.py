@@ -18,8 +18,12 @@ layers, d_model 4096, 64 heads x 64, d_ff 14336); serving both; and the
 MoE family's moonshot-v1-16b-a3b (48 layers, d_model 2048, 16 heads = 16
 KV heads of 128, 64 experts of width 1408, top-6, 2 shared experts, a
 dense first layer, vocab 163840; 56.8 GB of bf16 weights), its forward
-and serving it. In phases that each print their name, ``ok`` and their
-wall time:
+and serving it; the multimodal qwen2-vl-7b (28 layers, d_model 3584, 28
+heads over 4 KV heads of 128, M-RoPE, a patch-embedding prefix; 15.23
+GB), its forward and serving it; and the encoder-decoder
+seamless-m4t-large-v2 (24 + 24 layers, d_model 1024, 16 heads of 64,
+vocab 256206), its forward and its decoding. In phases that each print
+their name, ``ok`` and their wall time:
 
 1. environment: torch, CUDA, the card and its power limit;
 2. build: compile the four kernels from ``src/repro_torch`` with nvcc,
@@ -28,14 +32,20 @@ wall time:
    on the serve shape, a long cache, a window, one KV head, ragged
    lengths (0 and past the cache), zamba2's shared block (H = KV = 32,
    D = 64), moonshot's decode cell (H = KV = 16, D = 128; full and ragged
-   lengths) and the tensor-core path's tile edges (S = 65, G = 48 with a
-   window), in bf16 and fp32, with the split plan, one split and three;
+   lengths), the tensor-core path's tile edges (S = 65, G = 48 with a
+   window), qwen2-vl's cell (a GQA group of 7; full and ragged lengths)
+   and seamless's self and cross caches (D = 64; the cross cache full in
+   every row, at S = 1024 and at S = 1000, not a multiple of the 64-key
+   tile), in bf16 and fp32, with the split plan, one split and three;
 4. flash-vs-plain: the flash kernel against its plain version on the
    starcoder2 forward shape, a gemma3 local layer, MQA, a ragged length,
    non-causal attention, D=64, zamba2's shared block, moonshot's
-   forward (B = 4, S = 2048, H = KV = 16, D = 128) and the wgmma
+   forward (B = 4, S = 2048, H = KV = 16, D = 128), the wgmma
    kernel's tile edges (S = 127, 129, a window that cuts a tile, and
-   Sq = 129 against Sk = 127 at D = 64), in bf16 and fp32; and, at
+   Sq = 129 against Sk = 127 at D = 64), qwen2-vl's forward (a group of
+   7), seamless's encoder and cross-attention (non-causal, D = 64,
+   S = 1024) and decoder (causal), and a ragged non-causal D = 64 case
+   (Sq = 1000 against Sk = 777), in bf16 and fp32; and, at
    D = 64, where P meets V in fp16, V far beyond either end of fp16's
    range;
 5. ssd-vs-plain: the SSD kernels (bf16: tensor cores; fp32: CUDA
@@ -159,14 +169,36 @@ wall time:
     drain (migrated tokens equal), again with the paged cache (the dense
     tokens, pages shipped), decode attention 48 times a cell, and dense
     and paged decode steps in turns (wall, device-busy share);
-24. timing: device time of each kernel, its plain version and, where
+24. vlm-forward: qwen2-vl-7b at its published widths, B=4, S=2048 from
+    ``make_batch`` at seed 0 (484 patch positions, a 22 x 22 grid, and
+    1564 text tokens): at a depth of 4 the float32 and bf16 gates of
+    phase 19, then all 28 layers through ``launch.serve``'s ``build``
+    with the same gates (the float32 forwards cast each bf16 weight at
+    use): flash 28 times and a profiled device breakdown;
+25. vlm-serve: ``launch.serve --no-reduced --arch qwen2-vl-7b`` (text
+    only, the dense decode cell) through its ``run`` as phase 23:
+    undisturbed, revocation and drain, paged; decode attention 28 times
+    a cell; dense and paged decode steps in turns;
+26. encdec-forward: seamless-m4t-large-v2 at its published widths and
+    depth, B=4, S=2048 (1024 frames into the encoder, 1024 decoder
+    tokens): the float32 and bf16 gates at full depth; flash 72 times
+    (24 non-causal encoder layers, 24 causal decoder self-attentions, 24
+    non-causal cross-attentions);
+27. encdec-decode: ``Model.init_cache`` (B=4, max_len 512, enc_len
+    1024), ``encode_for_decode`` (flash 24 times) and 32 greedy steps of
+    ``make_serve_step`` (decode attention 48 times a cell: self and
+    cross); the float32 kernel path's tokens equal the plain path's;
+    the decode cell's host wall and device busy;
+28. timing: device time of each kernel, its plain version and, where
     one PyTorch call computes the same function,
     ``scaled_dot_product_attention`` (the library yardstick, which the
     port never calls) beside the kernel's bound and the share of it
     reached: decode at the serve shape, a long cache and zamba2's decode
-    cell and moonshot's (SDPA with the length mask and, since the
-    lengths are full, without one); flash at the starcoder2 forward, a
-    gemma3 local layer, zamba2's shared block and moonshot's forward;
+    cell, moonshot's, qwen2-vl's and seamless's self and cross caches
+    (SDPA with the length mask and, since the lengths are full, without
+    one); flash at the starcoder2 forward, a gemma3 local layer, zamba2's
+    shared block, moonshot's and qwen2-vl's forwards and seamless's
+    encoder and decoder layers;
     the SSD scan at zamba2's forward; WKV at
     rwkv6's forward in fp32 (fused views, nonzero s0) and as the model
     calls it (bf16 r, k, v and o, zero s0).
@@ -223,6 +255,16 @@ SHAPES = {
     # length of 64 - 1, and G = 48 with a window that cuts tiles
     "edge65": (2, 24, 2, 65, 128, [65, 63], 0),
     "g48": (2, 48, 1, 600, 128, [600, 450], 100),
+    # qwen2-vl-7b's decode cell: a GQA group of 7 (28 heads over 4)
+    "qwen2vl": (4, 28, 4, 512, 128, None, 0),
+    "qwen2vl_ragged": (4, 28, 4, 512, 128, [512, 300, 17, 0], 0),
+    # seamless-m4t-large-v2's decode cell at D = 64: the self-attention
+    # cache and the cross-attention cache over 1024 encoder frames, full
+    # in every row; and a cross cache of 1000 frames (not a multiple of
+    # the 64-key tile), full in every row
+    "seamless_self": (4, 16, 16, 512, 64, None, 0),
+    "seamless_cross": (4, 16, 16, 1024, 64, None, 0),
+    "cross1000": (2, 16, 16, 1000, 64, None, 0),
 }
 # name: (B, Sq, Sk, H, KV, D, causal, window)
 FLASH_SHAPES = {
@@ -239,6 +281,12 @@ FLASH_SHAPES = {
     "edge129": (2, 129, 129, 8, 2, 128, False, 0),
     "window_cut": (1, 600, 600, 8, 2, 128, True, 200),
     "edge_d64": (2, 129, 127, 8, 2, 64, False, 0),    # fp16 P at D = 64
+    "qwen2vl": (4, 2048, 2048, 28, 4, 128, True, 0),   # a group of 7
+    # seamless: the encoder and the cross-attention (non-causal), the
+    # decoder's self-attention (causal), and a ragged non-causal D = 64
+    "seamless_enc": (4, 1024, 1024, 16, 16, 64, False, 0),
+    "seamless_dec": (4, 1024, 1024, 16, 16, 64, True, 0),
+    "ragged_nc_d64": (2, 1000, 777, 16, 16, 64, False, 0),
 }
 # name: (B, S, H, P, N, lowest dA); dA is uniform in [lowest, -0.01]
 SSD_SHAPES = {
@@ -317,6 +365,16 @@ PAGED_ARGS = ["--cache-impl", "paged", "--page-size", "16"]
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_REDUCED_DEPTH = 4
 MOE_SERVE_ARGS = SERVE_ARGS + ["--arch", MOE_ARCH]
+# the multimodal phases: qwen2-vl-7b at its published widths, its forward
+# gated in float32 at a depth of 4, then at all 28 layers, and served
+VLM_ARCH = "qwen2-vl-7b"
+VLM_REDUCED_DEPTH = 4
+VLM_SERVE_ARGS = SERVE_ARGS + ["--arch", VLM_ARCH]
+# the encoder-decoder phases: seamless-m4t-large-v2 at its published
+# widths; its decode: B rows, a self cache of max_len, the cross caches
+# of enc_len frames, greedy steps
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_DECODE = {"B": 4, "max_len": 512, "enc_len": 1024, "steps": 32}
 # the serve-fleet phase: a serve-bursty trace written with the port's
 # RequestTrace.to_jsonl, replayed through launch.serve at full width
 FLEET_DIR = os.path.join(ROOT, "build", "chip_smoke_fleet")
@@ -505,6 +563,170 @@ def wkv_bound_ms(shape, dtype="float32"):
                                        else "operations"), flops, nbytes
 
 
+def decode_vs_plain(torch, name, gen):
+    """The decode kernel against its plain version on ``SHAPES[name]``,
+    in bf16 and fp32, with the split plan, one split (no merge launch)
+    and three; raises on a disagreement, returns the largest error."""
+    from repro_torch.kernels.decode_attention import kernel as K
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    shape = SHAPES[name]
+    B, H, KV, S = shape[:4]
+    max_err = 0.0
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, lens, win = attention_inputs(torch, shape, dtype, gen)
+        want = decode_attention_plain(q, k, v, lens, window=win)
+        for splits in (K.split_plan(B, KV, H, S)[0], 1, 3):
+            got = decode_attention(q, k, v, lens, window=win,
+                                   num_splits=splits)
+            torch.cuda.synchronize()
+            err, outside = worst(got, want, allowed(want, dtype))
+            max_err = max(max_err, err)
+            print(f"  {name:7s} {dtype:8s} splits={splits:<3d}: "
+                  f"max_abs_err {err:.3e} (tol {TOL_TEXT[dtype]}), "
+                  f"{outside} outside")
+            check(outside == 0 and math.isfinite(err),
+                  f"kernel disagrees with plain on {name}/{dtype}")
+    return max_err
+
+
+def flash_vs_plain(torch, name, gen):
+    """The flash kernel against its plain version on
+    ``FLASH_SHAPES[name]``, in bf16 and fp32; raises on a disagreement,
+    returns the largest error."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    shape = FLASH_SHAPES[name]
+    causal, window = shape[6], shape[7]
+    max_err = 0.0
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = flash_inputs(torch, shape, dtype, gen)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, outside = worst(got, want, allowed(want, dtype))
+        max_err = max(max_err, err)
+        print(f"  {name:13s} {dtype:8s}: max_abs_err {err:.3e} "
+              f"(tol {TOL_TEXT[dtype]}), {outside} outside")
+        check(outside == 0 and math.isfinite(err),
+              f"flash kernel disagrees with plain on {name}/{dtype}")
+        del q, k, v, want, got
+    return max_err
+
+
+def decode_timing(torch, name, gen, card_line):
+    """Device time of the decode kernel, its plain version and SDPA (with
+    the length mask and, the lengths being full, without one: the library
+    yardstick) on ``SHAPES[name]`` in bf16, beside the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as K
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    shape = SHAPES[name]
+    B, H, KV, S, D, _, win = shape
+    per_copy = 2 * B * S * KV * D * 2
+    n = max(2, math.ceil(2 * L2_BYTES / per_copy))
+    ins = [attention_inputs(torch, shape, "bfloat16", gen)
+           for _ in range(n)]
+    masks = [(torch.arange(S, device="cuda")[None, :]
+              < lens[:, None])[:, None, None, :]
+             for _, _, _, lens, _ in ins]
+    q, k, v, lens, _ = ins[0]
+    # a sanity check that both yardsticks compute the same function
+    # (their bf16 probabilities round more than the kernel's)
+    want = decode_attention_plain(q, k, v, lens)
+    for mask in (masks[0], None):
+        sdpa = F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+        err, outside = worst(sdpa[:, :, 0], want,
+                             2e-2 * (1 + want.float().abs()))
+        check(outside == 0,
+              "SDPA yardstick computes another function")
+    ms = device_ms(torch, lambda i: decode_attention(
+        *ins[i][:4], window=win), n)
+    plain = device_ms(torch, lambda i: decode_attention_plain(
+        *ins[i][:4], window=win), n)
+    masked = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        ins[i][0][:, :, None], ins[i][1], ins[i][2],
+        attn_mask=masks[i], enable_gqa=True), n)
+    # the lengths are full, so SDPA without the mask computes the
+    # same function here: the library yardstick is that call
+    lib = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        ins[i][0][:, :, None], ins[i][1], ins[i][2],
+        enable_gqa=True), n)
+    bms, by, nbytes = bound_ms(shape, "bfloat16", lens.tolist())
+    ns = K.split_plan(B, KV, H, S)[0]
+    print(f"  {name}: B={B} H={H} KV={KV} S={S} D={D} bf16, full "
+          f"lengths: kernel {ms * 1e3:.2f} us, plain "
+          f"{plain * 1e3:.2f} us, sdpa {lib * 1e3:.2f} us (with the "
+          f"length mask {masked * 1e3:.2f} us); bound "
+          f"{bms * 1e3:.2f} us ({by}, {nbytes / 1e6:.1f} MB); "
+          f"kernel at {nbytes / ms / 1e9:.3f} TB/s, "
+          f"{bms / ms:.3f} of the bound; {ns} splits, {n} input "
+          f"copies [{card_line}]")
+    return {"shape": name, "B": B, "H": H, "KV": KV, "S": S, "D": D,
+            "dtype": "bfloat16", "num_splits": ns, "ms": ms,
+            "plain_ms": plain, "library_ms": lib,
+            "library_masked_ms": masked, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "achieved_GBps": nbytes / ms / 1e6,
+            "bound_share": bms / ms}
+
+
+def flash_timing(torch, name, gen, card_line):
+    """Device time of the flash kernel, its plain version and SDPA (the
+    library yardstick) on ``FLASH_SHAPES[name]`` in bf16, beside the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    shape = FLASH_SHAPES[name]
+    B, Sq, Sk, H, KV, D, causal, win = shape
+    per_copy = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
+    n = max(2, math.ceil(2 * L2_BYTES / per_copy))
+    ins = [flash_inputs(torch, shape, "bfloat16", gen)
+           for _ in range(n)]
+    pos = torch.arange(Sq, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (
+        pos[None, :] > pos[:, None] - win) if win > 0 else None
+
+    def sdpa(i):
+        q, k, v = (x.transpose(1, 2) for x in ins[i])
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask,
+            is_causal=causal and mask is None,
+            enable_gqa=True).transpose(1, 2)
+
+    # a sanity check that the yardstick computes the same function
+    # (its bf16 probabilities round more than the kernel's)
+    want = flash_attention_plain(*ins[0], causal=causal, window=win)
+    err, outside = worst(sdpa(0), want,
+                         2e-2 * (1 + want.float().abs()))
+    check(outside == 0, "SDPA yardstick computes another function")
+    del want
+
+    ms = device_ms(torch, lambda i: flash_attention(
+        *ins[i], causal=causal, window=win), n, calls=16, reps=3)
+    plain = device_ms(torch, lambda i: flash_attention_plain(
+        *ins[i], causal=causal, window=win), n, calls=2, reps=3)
+    lib = device_ms(torch, sdpa, n, calls=16, reps=3)
+    bms, by, flops, nbytes = flash_bound_ms(shape, "bfloat16")
+    print(f"  flash {name}: B={B} S={Sq} H={H} KV={KV} D={D} "
+          f"{'causal' if causal else 'non-causal'} window={win} "
+          f"bf16: kernel {ms * 1e3:.1f} us, plain "
+          f"{plain * 1e3:.1f} us, sdpa "
+          f"{lib * 1e3:.1f} us; bound {bms * 1e3:.1f} us ({by}, "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); kernel "
+          f"at {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of the "
+          f"bound [{card_line}]")
+    del ins
+    release(torch)
+    return {"shape": name, "B": B, "S": Sq, "H": H, "KV": KV, "D": D,
+            "causal": causal, "window": win, "dtype": "bfloat16", "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+            "bound_by": by, "flops": flops, "bytes": nbytes,
+            "achieved_TFLOPs": flops / ms / 1e9, "bound_share": bms / ms}
+
+
 def build_all(build, sources):
     """Compile every kernel at once, one nvcc per source; returns
     {name: seconds} and raises on the first failed build."""
@@ -653,15 +875,15 @@ def step_walls(torch, eng, n):
     return walls
 
 
-def step_profile(torch, eng, n_prof=3):
-    """``n_prof`` engine steps under torch.profiler: (device busy ms a
-    step, {kernel name: (us a step, launches a step)})."""
+def calls_profile(torch, fn, n_prof=3):
+    """``n_prof`` calls of ``fn()`` under torch.profiler: (device busy ms
+    a call, {kernel name: (us a call, launches a call)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
-            eng.step()
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = {}
@@ -697,7 +919,7 @@ def paged_step_compare(torch, serve, model, params, card_line,
         walls[impl] += step_walls(torch, engines[impl], 10)
     out = {}
     for impl, eng in engines.items():
-        busy, by_name = step_profile(torch, eng)
+        busy, by_name = calls_profile(torch, eng.step)
         wall = sorted(walls[impl])[len(walls[impl]) // 2]
         index = sum(t for nm, (t, _) in by_name.items()
                     if "index" in nm.lower())
@@ -836,10 +1058,11 @@ def rms(a, b):
 
 
 def forward_check(torch, model, plain_model, params, batch, expect,
-                  card_line, fp32_gate=False):
+                  card_line, fp32_gate=False, params32=None):
     """``Model.apply`` on one batch through the kernels (``model``) and
     through the plain paths (``plain_model``), finite logits of the right
-    shape. ``expect`` lists (wrapper, launches, device-kernel name):
+    shape (B, S, vocab) for labels (B, S): the decoder's positions for
+    encdec. ``expect`` lists (wrapper, launches, device-kernel name):
     every wrapper's count is set to 0 just before the kernel path's
     forward and read just after, and must equal its launches.
 
@@ -850,7 +1073,10 @@ def forward_check(torch, model, plain_model, params, batch, expect,
     from the plain path's float32 logits, in root mean square, than 1.5x
     the plain path's own bf16 logits do: random full-width models amplify
     bf16 rounding to several percent of max|logit| on either path, so the
-    bf16 gate is held against that floor, measured in the same run.
+    bf16 gate is held against that floor, measured in the same run. The
+    float32 forwards run on ``params32``: by default a float32 copy of
+    ``params``; given ``params`` itself, each weight is cast at use (the
+    same values, without a float32 copy of the model).
 
     Then one more forward under torch.profiler: device busy time, each
     kernel's device time and launches (which must equal its launches
@@ -860,7 +1086,7 @@ def forward_check(torch, model, plain_model, params, batch, expect,
     from repro_torch.serving import with_impls
     from repro_torch.tree import tree_map
     cfg = model.cfg
-    B, S = batch["tokens"].shape
+    B, S = batch["labels"].shape
 
     with torch.no_grad():
         t0 = time.monotonic()
@@ -899,7 +1125,8 @@ def forward_check(torch, model, plain_model, params, batch, expect,
         check(rel16 <= 0.05, f"full-width {cfg.name} forward: kernel path "
                              f"and plain path disagree (tol 0.05)")
     else:
-        params32 = tree_map(lambda t: t.float(), params)
+        if params32 is None:
+            params32 = tree_map(lambda t: t.float(), params)
         with torch.no_grad():
             k32 = with_impls(model, dtype="float32").apply(
                 params32, batch)[0]
@@ -1700,18 +1927,255 @@ def moe_serve_phase(torch, serve, model, params, card_line):
     return {"serve": dense, "serve_paged": paged, "step_compare": compare}
 
 
+# ---------------------------------------------------------------------------
+# The multimodal and encoder-decoder families at their published widths
+# ---------------------------------------------------------------------------
+
+def weights_line(torch, cfg, params, init_s):
+    """(parameters, bytes) of ``params``, printed with the peak device
+    memory."""
+    from repro_torch.tree import tree_leaves
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size()
+                  for _, t in tree_leaves(params))
+    print(f"  {cfg.name} at depth {cfg.num_layers}: {n_params / 1e9:.3f} B "
+          f"parameters, weights {n_bytes / 1e9:.2f} GB {cfg.dtype}, init "
+          f"{init_s:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return n_params, n_bytes
+
+
+def vlm_forward_phase(torch, serve, card_line):
+    """qwen2-vl-7b at its published widths (28 layers, d_model 3584, 28
+    heads over 4 KV heads of 128: a GQA group of 7, d_ff 18944, vocab
+    152064, M-RoPE), B=4, S=2048 from ``make_batch`` at seed 0 (484
+    patch positions, a 22 x 22 grid, and 1564 text tokens). At a depth of
+    4 ``forward_check`` with its float32 gate; then all 28 layers through
+    ``launch.serve``'s ``build`` (the weights vlm-serve serves), gated the
+    same way, the float32 forwards casting each bf16 weight at use: flash
+    once per layer and the profiled breakdown. Returns the served model,
+    its parameters and stats."""
+    from repro_torch.config import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models.builder import build_model
+    from repro_torch.serving import with_impls
+    wr = kernel_wrappers()
+    flash, decode = wr["flash_attention"], wr["decode_attention"]
+    cfg = get_config(VLM_ARCH).replace(num_layers=VLM_REDUCED_DEPTH)
+    check(cfg.attn_impl == "cuda" and cfg.d_model == 3584
+          and (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (28, 4, 128)
+          and cfg.d_ff == 18944 and cfg.vocab_size == 152064
+          and cfg.use_mrope, "not qwen2-vl at its published widths")
+    model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    weights_line(torch, cfg, params, time.monotonic() - t0)
+    batch = make_batch(cfg, *FORWARD_BATCH, seed=0)
+    n_img = batch["patch_embeds"].shape[1]
+    print(f"  batch: {n_img} patch positions + {batch['tokens'].shape[1]} "
+          f"text tokens a row")
+    expect = [(flash, cfg.num_layers, "flash_fwd"),
+              (decode, 0, "decode_split_kernel")]
+    reduced = forward_check(torch, model, with_impls(model, attn_impl="torch"),
+                            params, batch, expect, card_line, fp32_gate=True)
+    del model, params
+    release(torch)
+
+    args = serve.parse_args(VLM_SERVE_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model, params = serve.build(args)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    check(cfg.num_layers == 28 and cfg.attn_impl == "cuda",
+          "not full-width qwen2-vl")
+    n_params, n_bytes = weights_line(torch, cfg, params,
+                                     time.monotonic() - t0)
+    full = forward_check(
+        torch, model, with_impls(model, attn_impl="torch"), params, batch,
+        [(flash, cfg.num_layers, "flash_fwd"),
+         (decode, 0, "decode_split_kernel")], card_line, fp32_gate=True,
+        params32=params)
+    del batch
+    release(torch)
+    return model, params, {"reduced_depth": reduced, "full": full,
+                           "params": n_params, "weight_bytes": n_bytes,
+                           "flash_launches": full["kernels"][
+                               "flash_attention"]["launches"]}
+
+
+def vlm_serve_phase(torch, serve, model, params, card_line):
+    """``launch.serve --no-reduced --arch qwen2-vl-7b`` through its
+    ``run`` (text only, the dense decode cell, as the reference serves
+    it): the serve phase's requests undisturbed, then a revocation and a
+    drain (migrated tokens equal), again with the paged cache (the dense
+    tokens, pages shipped); decode attention once per layer per cell (28)
+    and no flash; then dense and paged decode steps in turns (host wall,
+    device busy, launches)."""
+    wr = kernel_wrappers()
+    expect = [(wr["decode_attention"], model.cfg.num_layers),
+              (wr["flash_attention"], 0)]
+    args = serve.parse_args(VLM_SERVE_ARGS)
+    dense, dense_tokens = serve_and_migrate(
+        torch, serve, args, model, params, card_line, expect)
+    pargs = serve.parse_args(VLM_SERVE_ARGS + PAGED_ARGS)
+    paged, paged_tokens = serve_and_migrate(
+        torch, serve, pargs, model, params, card_line, expect)
+    check(paged_tokens == dense_tokens, "qwen2-vl's paged engine's tokens "
+                                        "differ from the dense one's")
+    compare = paged_step_compare(torch, serve, model, params, card_line,
+                                 ["--arch", VLM_ARCH])
+    return {"serve": dense, "serve_paged": paged, "step_compare": compare}
+
+
+def encdec_forward_phase(torch, card_line):
+    """seamless-m4t-large-v2 at its published widths and depth (24
+    encoder + 24 decoder layers, d_model 1024, 16 = 16 KV heads of 64,
+    d_ff 8192, vocab 256206), B=4, S=2048 from ``make_batch`` at seed 0
+    (1024 frames into the encoder, 1024 decoder tokens):
+    ``forward_check`` with its float32 gate at full depth (6.5 GB of
+    float32 weights). Flash runs 72 times: 24 non-causal in the encoder,
+    24 causal and 24 non-causal (the cross-attention) in the decoder.
+    Returns the model, its bf16 parameters and stats."""
+    from repro_torch.config import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models.builder import build_model
+    from repro_torch.serving import with_impls
+    wr = kernel_wrappers()
+    cfg = get_config(ENCDEC_ARCH)
+    check(cfg.attn_impl == "cuda" and (cfg.enc_layers, cfg.dec_layers) ==
+          (24, 24) and cfg.d_model == 1024 and cfg.head_dim == 64
+          and cfg.num_heads == cfg.num_kv_heads == 16
+          and cfg.vocab_size == 256206,
+          "not seamless at its published widths")
+    model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    n_params, n_bytes = weights_line(torch, cfg, params,
+                                     time.monotonic() - t0)
+    batch = make_batch(cfg, *FORWARD_BATCH, seed=0)
+    print(f"  batch: {batch['frame_embeds'].shape[1]} frames + "
+          f"{batch['tokens'].shape[1]} decoder tokens a row")
+    stats = forward_check(
+        torch, model, with_impls(model, attn_impl="torch"), params, batch,
+        [(wr["flash_attention"], 3 * cfg.dec_layers, "flash_fwd"),
+         (wr["decode_attention"], 0, "decode_split_kernel")], card_line,
+        fp32_gate=True)
+    del batch
+    release(torch)
+    return model, params, dict(stats, params=n_params, weight_bytes=n_bytes)
+
+
+def encdec_decode_phase(torch, model, params, card_line):
+    """seamless decoding through its entry points: ``Model.init_cache``
+    (B=4, max_len 512, enc_len 1024), ``encode_for_decode`` of the
+    forward batch's frames (flash once per encoder layer: 24), then 32
+    greedy steps of ``make_serve_step`` from the batch's first tokens
+    (decode attention twice per decoder layer per cell, self and cross:
+    48). The main path is the bf16 kernels; then the same in float32
+    (each weight cast at use) through the kernels and through the plain
+    paths, whose greedy tokens must be equal. Host wall and device busy
+    of a decode cell."""
+    from repro_torch.data import make_batch
+    from repro_torch.models.transformer import encode_for_decode
+    from repro_torch.serving import with_impls
+    from repro_torch.train.step import make_serve_step
+    cfg = model.cfg
+    B, max_len, enc_len, steps = (ENCDEC_DECODE[k] for k in (
+        "B", "max_len", "enc_len", "steps"))
+    batch = make_batch(cfg, B, 2 * enc_len, seed=0)
+    frames, start = batch["frame_embeds"], batch["tokens"][:, :1]
+
+    def run(m, timed=False):
+        """(tokens (B, steps), encode launches, decode launches, encode
+        ms, decode cell walls in ms, the final cache)."""
+        step = make_serve_step(m)
+        cache = m.init_cache(B, max_len, enc_len=enc_len)
+        zero_counts()                             # the path's run starts
+        t0 = time.monotonic()
+        with torch.no_grad():
+            cache = encode_for_decode(params, m.cfg, frames, cache)
+        torch.cuda.synchronize()
+        enc_ms = (time.monotonic() - t0) * 1e3
+        enc_counts = read_counts()
+        zero_counts()
+        tok, toks, walls = start, [], []
+        for _ in range(steps):
+            t0 = time.monotonic()
+            tok, cache = step(params, cache, tok)
+            if timed:
+                torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        return (torch.cat(toks, 1), enc_counts, read_counts(),  # and ends
+                enc_ms, walls, cache)
+
+    toks, enc_counts, dec_counts, enc_ms, walls, cache = run(model,
+                                                             timed=True)
+    wall = sorted(walls)[len(walls) // 2]
+    check(enc_counts["flash_attention"] == cfg.enc_layers
+          and enc_counts["decode_attention"] == 0,
+          f"encode_for_decode launched {enc_counts}, not "
+          f"{cfg.enc_layers} flash")
+    check(dec_counts["decode_attention"] == 2 * cfg.dec_layers * steps
+          and dec_counts["flash_attention"] == 0,
+          f"{steps} decode cells launched {dec_counts}, not "
+          f"{2 * cfg.dec_layers} decode attention a cell")
+    check(tuple(toks.shape) == (B, steps) and bool((toks >= 0).all())
+          and bool((toks < cfg.vocab_size).all())
+          and torch.equal(cache["pos"], torch.full_like(cache["pos"], steps)),
+          "seamless decode output malformed")
+    serve_step = make_serve_step(model)
+    busy, by_name = calls_profile(
+        torch, lambda: serve_step(params, cache, toks[:, -1:]), 3)
+    launches = sum(n for _, n in by_name.values())
+    print(f"  {cfg.name} B={B} max_len {max_len} enc_len {enc_len}: "
+          f"encode_for_decode {enc_ms:.1f} ms wall "
+          f"({enc_counts['flash_attention']} flash launches); decode cell "
+          f"host wall median {wall:.2f} ms "
+          f"(min {min(walls):.2f}), device busy {busy:.3f} ms (share "
+          f"{busy / wall:.3f}), {launches:.0f} device launches a cell; "
+          f"decode attention {dec_counts['decode_attention']} launches in "
+          f"{steps} cells [{card_line}]")
+    for t, n, nm in sorted(((t, n, nm[:60]) for nm, (t, n)
+                            in by_name.items()), reverse=True)[:5]:
+        print(f"    {t:9.1f} us/cell  x{n:<4.0f} {nm}")
+    plain16 = run(with_impls(model, attn_impl="torch"))[0]
+    k32 = run(with_impls(model, dtype="float32"))[0]
+    p32 = run(with_impls(model, attn_impl="torch", dtype="float32"))[0]
+    same32 = int((k32 == p32).all(1).sum())
+    agree16 = float((toks == plain16).float().mean())
+    print(f"  greedy tokens, {steps} steps x {B} rows: float32 kernels vs "
+          f"plain equal in {same32}/{B} rows; bf16 kernels vs plain "
+          f"agreement {agree16:.4f}, bf16 vs float32 kernels "
+          f"{float((toks == k32).float().mean()):.4f}")
+    check(torch.equal(k32, p32), "seamless float32 decode: kernel and plain "
+                                 "paths give other tokens")
+    del cache, batch
+    release(torch)
+    return {"encode_ms": enc_ms, "cell_wall_ms": walls,
+            "cell_wall_ms_median": wall, "cell_busy_ms": busy,
+            "cell_busy_share": busy / wall, "cell_launches": launches,
+            "encode_flash_launches": enc_counts["flash_attention"],
+            "decode_launches": dec_counts["decode_attention"],
+            "fp32_rows_equal": same32, "bf16_agreement": agree16}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    import torch.nn.functional as F
 
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import kernel as K
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -1765,44 +2229,12 @@ def main() -> int:
                     print("   ", line.strip())
 
     with phase("kernel-vs-plain"):
-        max_err = 0.0
-        for name, shape in SHAPES.items():
-            B, H, KV, S = shape[:4]
-            for dtype in ("bfloat16", "float32"):
-                q, k, v, lens, win = attention_inputs(torch, shape, dtype,
-                                                      gen)
-                want = decode_attention_plain(q, k, v, lens, window=win)
-                # the plan, one split (no merge launch), and three
-                for splits in (K.split_plan(B, KV, H, S)[0], 1, 3):
-                    got = decode_attention(q, k, v, lens, window=win,
-                                           num_splits=splits)
-                    torch.cuda.synchronize()
-                    err, outside = worst(got, want, allowed(want, dtype))
-                    max_err = max(max_err, err)
-                    print(f"  {name:7s} {dtype:8s} splits={splits:<3d}: "
-                          f"max_abs_err {err:.3e} (tol {TOL_TEXT[dtype]}), "
-                          f"{outside} outside")
-                    check(outside == 0 and math.isfinite(err),
-                          f"kernel disagrees with plain on {name}/{dtype}")
-        record["max_abs_err"] = max_err
+        record["max_abs_err"] = max(decode_vs_plain(torch, name, gen)
+                                    for name in SHAPES)
 
     with phase("flash-vs-plain"):
-        max_err = 0.0
-        for name, shape in FLASH_SHAPES.items():
-            causal, window = shape[6], shape[7]
-            for dtype in ("bfloat16", "float32"):
-                q, k, v = flash_inputs(torch, shape, dtype, gen)
-                want = flash_attention_plain(q, k, v, causal=causal,
-                                             window=window)
-                got = flash_attention(q, k, v, causal=causal, window=window)
-                torch.cuda.synchronize()
-                err, outside = worst(got, want, allowed(want, dtype))
-                max_err = max(max_err, err)
-                print(f"  {name:13s} {dtype:8s}: max_abs_err {err:.3e} "
-                      f"(tol {TOL_TEXT[dtype]}), {outside} outside")
-                check(outside == 0 and math.isfinite(err),
-                      f"flash kernel disagrees with plain on {name}/{dtype}")
-                del q, k, v, want, got
+        max_err = max(flash_vs_plain(torch, name, gen)
+                      for name in FLASH_SHAPES)
         # at D = 64 P meets V in fp16, V scaled by a power of two into
         # fp16's range: V far beyond either end of it (normal in bf16)
         # gives the plain answer too. Both outputs are divided by v_scale
@@ -2254,64 +2686,47 @@ def main() -> int:
                                          card_line))
         record["moonshot_launches"] = moe_stats["serve"]["launches"][
             "decode_attention"]
+        # moonshot's 56.8 GB go before the multimodal model comes
         del mmodel, mparams
+        release(torch)
+
+    with phase("vlm-forward"):
+        vmodel, vparams, vlm_stats = vlm_forward_phase(torch, serve,
+                                                       card_line)
+        flash_record["qwen2vl_launches"] = vlm_stats["flash_launches"]
+
+    with phase("vlm-serve"):
+        vlm_stats.update(vlm_serve_phase(torch, serve, vmodel, vparams,
+                                         card_line))
+        record["qwen2vl_launches"] = vlm_stats["serve"]["launches"][
+            "decode_attention"]
+        del vmodel, vparams
+        release(torch)
+
+    with phase("encdec-forward"):
+        emodel, eparams, encdec_stats = encdec_forward_phase(torch,
+                                                             card_line)
+        flash_record["seamless_launches"] = encdec_stats["kernels"][
+            "flash_attention"]["launches"]
+
+    with phase("encdec-decode"):
+        encdec_stats["decode"] = encdec_decode_phase(torch, emodel, eparams,
+                                                     card_line)
+        record["seamless_launches"] = encdec_stats["decode"][
+            "decode_launches"]
+        flash_record["seamless_encode_launches"] = encdec_stats["decode"][
+            "encode_flash_launches"]
+        del emodel, eparams
         release(torch)
 
     with phase("timing"):
         # decode: the serve cell's shape, a long cache, zamba2's decode
-        # cell (H = KV = 32, D = 64), all at full lengths
-        timings = []
-        for name in ("serve", "long", "zamba2_decode", "moonshot"):
-            shape = SHAPES[name]
-            B, H, KV, S, D, _, win = shape
-            per_copy = 2 * B * S * KV * D * 2
-            n = max(2, math.ceil(2 * L2_BYTES / per_copy))
-            ins = [attention_inputs(torch, shape, "bfloat16", gen)
-                   for _ in range(n)]
-            masks = [(torch.arange(S, device="cuda")[None, :]
-                      < lens[:, None])[:, None, None, :]
-                     for _, _, _, lens, _ in ins]
-            q, k, v, lens, _ = ins[0]
-            # a sanity check that both yardsticks compute the same function
-            # (their bf16 probabilities round more than the kernel's)
-            want = decode_attention_plain(q, k, v, lens)
-            for mask in (masks[0], None):
-                sdpa = F.scaled_dot_product_attention(
-                    q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
-                err, outside = worst(sdpa[:, :, 0], want,
-                                     2e-2 * (1 + want.float().abs()))
-                check(outside == 0,
-                      "SDPA yardstick computes another function")
-            ms = device_ms(torch, lambda i: decode_attention(
-                *ins[i][:4], window=win), n)
-            plain = device_ms(torch, lambda i: decode_attention_plain(
-                *ins[i][:4], window=win), n)
-            masked = device_ms(torch, lambda i: F.scaled_dot_product_attention(
-                ins[i][0][:, :, None], ins[i][1], ins[i][2],
-                attn_mask=masks[i], enable_gqa=True), n)
-            # the lengths are full, so SDPA without the mask computes the
-            # same function here: the library yardstick is that call
-            lib = device_ms(torch, lambda i: F.scaled_dot_product_attention(
-                ins[i][0][:, :, None], ins[i][1], ins[i][2],
-                enable_gqa=True), n)
-            bms, by, nbytes = bound_ms(shape, "bfloat16", lens.tolist())
-            ns = K.split_plan(B, KV, H, S)[0]
-            print(f"  {name}: B={B} H={H} KV={KV} S={S} D={D} bf16, full "
-                  f"lengths: kernel {ms * 1e3:.2f} us, plain "
-                  f"{plain * 1e3:.2f} us, sdpa {lib * 1e3:.2f} us (with the "
-                  f"length mask {masked * 1e3:.2f} us); bound "
-                  f"{bms * 1e3:.2f} us ({by}, {nbytes / 1e6:.1f} MB); "
-                  f"kernel at {nbytes / ms / 1e9:.3f} TB/s, "
-                  f"{bms / ms:.3f} of the bound; {ns} splits, {n} input "
-                  f"copies [{card_line}]")
-            timings.append({"shape": name, "B": B, "H": H, "KV": KV, "S": S,
-                            "D": D, "dtype": "bfloat16", "num_splits": ns,
-                            "ms": ms, "plain_ms": plain, "library_ms": lib,
-                            "library_masked_ms": masked,
-                            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-                            "achieved_GBps": nbytes / ms / 1e6,
-                            "bound_share": bms / ms})
-            del ins, masks
+        # cell (H = KV = 32, D = 64), moonshot's, qwen2-vl's (G = 7) and
+        # seamless's self and cross caches, all at full lengths
+        timings = [decode_timing(torch, name, gen, card_line)
+                   for name in ("serve", "long", "zamba2_decode", "moonshot",
+                                "qwen2vl", "seamless_self",
+                                "seamless_cross")]
         serve_t = timings[0]
         record.update(ms=serve_t["ms"], plain_ms=serve_t["plain_ms"],
                       bound_ms=serve_t["bound_ms"],
@@ -2319,54 +2734,12 @@ def main() -> int:
                       library_ms=serve_t["library_ms"])
 
         # flash: the starcoder2 forward, a gemma3 local layer, zamba2's
-        # shared block
-        flash_timings = []
-        for name in ("forward", "gemma3_window", "zamba2", "moonshot"):
-            shape = FLASH_SHAPES[name]
-            B, Sq, Sk, H, KV, D, causal, win = shape
-            per_copy = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
-            n = max(2, math.ceil(2 * L2_BYTES / per_copy))
-            ins = [flash_inputs(torch, shape, "bfloat16", gen)
-                   for _ in range(n)]
-            pos = torch.arange(Sq, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) & (
-                pos[None, :] > pos[:, None] - win) if win > 0 else None
-
-            def sdpa(i):
-                q, k, v = (x.transpose(1, 2) for x in ins[i])
-                return F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=True).transpose(1, 2)
-
-            # a sanity check that the yardstick computes the same function
-            # (its bf16 probabilities round more than the kernel's)
-            want = flash_attention_plain(*ins[0], causal=causal, window=win)
-            err, outside = worst(sdpa(0), want,
-                                 2e-2 * (1 + want.float().abs()))
-            check(outside == 0, "SDPA yardstick computes another function")
-            del want
-
-            ms = device_ms(torch, lambda i: flash_attention(
-                *ins[i], causal=causal, window=win), n, calls=16, reps=3)
-            plain = device_ms(torch, lambda i: flash_attention_plain(
-                *ins[i], causal=causal, window=win), n, calls=2, reps=3)
-            lib = device_ms(torch, sdpa, n, calls=16, reps=3)
-            bms, by, flops, nbytes = flash_bound_ms(shape, "bfloat16")
-            print(f"  flash {name}: B={B} S={Sq} H={H} KV={KV} D={D} "
-                  f"window={win} bf16: kernel {ms * 1e3:.1f} us, plain "
-                  f"{plain * 1e3:.1f} us, sdpa "
-                  f"{lib * 1e3:.1f} us; bound {bms * 1e3:.1f} us ({by}, "
-                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); kernel "
-                  f"at {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of the "
-                  f"bound [{card_line}]")
-            flash_timings.append({
-                "shape": name, "B": B, "S": Sq, "H": H, "KV": KV, "D": D,
-                "window": win, "dtype": "bfloat16", "ms": ms,
-                "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-                "bound_by": by, "flops": flops, "bytes": nbytes,
-                "achieved_TFLOPs": flops / ms / 1e9, "bound_share": bms / ms})
-            del ins
-            release(torch)
+        # shared block, moonshot's and qwen2-vl's forwards, seamless's
+        # encoder (and cross-attention: non-causal) and decoder layers
+        flash_timings = [flash_timing(torch, name, gen, card_line)
+                         for name in ("forward", "gemma3_window", "zamba2",
+                                      "moonshot", "qwen2vl", "seamless_enc",
+                                      "seamless_dec")]
         fwd_t = flash_timings[0]
         flash_record.update(ms=fwd_t["ms"], plain_ms=fwd_t["plain_ms"],
                             bound_ms=fwd_t["bound_ms"],
@@ -2445,7 +2818,8 @@ def main() -> int:
                           "checkpoint": checkpoint_stats,
                           "resnet32": resnet_stats, "gym": gym_stats,
                           "recurrent": recurrent_stats,
-                          "moe": moe_stats, "card": card_line}))
+                          "moe": moe_stats, "vlm": vlm_stats,
+                          "encdec": encdec_stats, "card": card_line}))
 
     print(json.dumps({"kernels": [record, flash_record, ssd_record,
                                   wkv_record]}))

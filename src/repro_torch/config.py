@@ -1,5 +1,6 @@
 """Configuration for the PyTorch port: the fields of the dense, MoE,
-hybrid (zamba2), recurrent (rwkv6) and resnet families, and the training
+hybrid (zamba2), recurrent (rwkv6), multimodal (qwen2-vl),
+encoder-decoder (seamless) and resnet families, and the training
 configuration.
 
 A copy of the part of ``repro.config`` that the ported serving and
@@ -45,6 +46,7 @@ class ModelConfig:
     gated_mlp: bool = True         # SwiGLU when True, tanh-GeLU 4x when False
     tie_embeddings: bool = False
     rope_theta: float = 1e4
+    use_mrope: bool = False        # qwen2-vl multimodal rotary (t,h,w)
 
     # --- local/global attention pattern (gemma3) ---------------------------
     sliding_window: int = 0        # 0 = every layer global
@@ -69,6 +71,15 @@ class ModelConfig:
 
     # --- RWKV6 ---------------------------------------------------------------
     rwkv_head_dim: int = 64
+
+    # --- encoder-decoder ----------------------------------------------------
+    enc_layers: int = 0
+    dec_layers: int = 0
+
+    # --- modality stub ------------------------------------------------------
+    # Fraction of the sequence fed as precomputed frontend embeddings
+    # (vision patches / audio frames). The rest are ordinary tokens.
+    modality_prefix_frac: float = 0.0
 
     # --- resnet -------------------------------------------------------------
     resnet_n: int = 0              # ResNet-(6n+2); n=5 -> ResNet-32

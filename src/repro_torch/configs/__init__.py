@@ -9,8 +9,10 @@ from repro_torch.configs import (  # noqa: F401
     granite_20b,
     moonshot_v1_16b_a3b,
     qwen2_5_14b,
+    qwen2_vl_7b,
     resnet32_cifar10,
     rwkv6_7b,
+    seamless_m4t_large_v2,
     starcoder2_3b,
     zamba2_1p2b,
 )

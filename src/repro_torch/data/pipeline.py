@@ -1,17 +1,15 @@
 """Deterministic sharded data pipeline (counterpart of
-``repro.data.pipeline``), for the language-model families and the
-ResNet the port runs, and the learnable ``Cifar10Like`` task.
+``repro.data.pipeline``), for every family the port runs, and the
+learnable ``Cifar10Like`` task.
 
 Batches are a pure function of ``(step, shard_id, num_shards, seed)``, so
 a restart from a checkpointed step replays the exact stream and a change
 of membership re-partitions it with no coordination (the paper's C3
 bound). The draws are numpy's, bit-identical to the reference's: the same
 ``SeedSequence``, the same calls in the same order. Only then do the
-arrays become tensors on the device: ``torch.int64`` tokens and labels,
-``float32`` images (B, H, W, 3).
-
-Not ported yet: the multimodal and encoder-decoder batches (Queue 1
-item 6).
+arrays become tensors on the device: ``torch.int64`` tokens, labels and
+M-RoPE positions, ``float32`` images (B, H, W, 3), patch and frame
+embeddings in ``cfg.dtype``.
 """
 from __future__ import annotations
 
@@ -23,13 +21,11 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import modality
+from repro_torch.models.layers import torch_dtype
 
-# Families whose batches the port does not build yet, and the ROADMAP.md
-# Queue 1 item that ports each.
-_UNPORTED = {
-    "vlm": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
-    "encdec": "Queue 1 item 6 (MoE, multimodal and encoder-decoder)",
-}
+# the families whose batches are token streams
+_TOKEN_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _fold(seed: int, *vals: int) -> np.random.Generator:
@@ -51,16 +47,47 @@ def lm_batch_keys(cfg: ModelConfig) -> Tuple[str, ...]:
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, *, seed: int = 0,
                step: int = 0, np_rng: Optional[np.random.Generator] = None,
                device="cuda") -> Dict[str, torch.Tensor]:
-    """One synthetic batch with the input layout of ``cfg``: for the
-    language models tokens (B, S) and labels (B, S), the labels the tokens
-    shifted by one, int64; for resnet normal images (B, H, W, 3) float32
-    and class labels (B,) int64 (``seq_len`` unused). On ``device``."""
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family!r} batches are not ported to PyTorch "
-            f"yet; see ROADMAP.md {_UNPORTED[cfg.family]}")
+    """One synthetic batch with the input layout of ``cfg``, on
+    ``device``:
+    - the token families: tokens (B, S) and labels (B, S), the labels the
+      tokens shifted by one;
+    - vlm: text tokens (B, S_txt), patch embeddings (B, S_img, d) in
+      ``cfg.dtype``, M-RoPE positions (B, S, 3) and labels (B, S), drawn
+      in that order (the image prefix's labels are masked by the loss);
+    - encdec: frame embeddings (B, S_enc, d) in ``cfg.dtype``, decoder
+      tokens and labels (B, S_dec), drawn in that order;
+    - resnet: normal images (B, H, W, 3) float32 and class labels (B,)
+      (``seq_len`` unused).
+    Integers are int64. The embeddings are normal draws, float32 x 0.02,
+    then cast, as the reference's. ValueError for an unknown family."""
+    if cfg.family not in _TOKEN_FAMILIES + ("vlm", "encdec", "resnet"):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     device = resolve_device(device)
     rng = np_rng or _fold(seed, step)
+
+    def ints(a):
+        return torch.from_numpy(a).to(device=device, dtype=torch.int64)
+
+    def embeds(shape):
+        a = rng.normal(size=shape).astype(np.float32) * 0.02
+        return torch.from_numpy(a).to(device=device,
+                                      dtype=torch_dtype(cfg.dtype))
+
+    V = max(2, cfg.vocab_size)
+    if cfg.family == "vlm":
+        n_img, n_txt = modality.vlm_split(cfg, seq_len)
+        tokens = ints(rng.integers(0, V, size=(batch, n_txt)))
+        patches = embeds((batch, n_img, cfg.d_model))
+        return {"tokens": tokens, "patch_embeds": patches,
+                "mrope_positions": modality.mrope_positions(
+                    cfg, batch, seq_len, device),
+                "labels": ints(rng.integers(0, V, size=(batch, seq_len)))}
+    if cfg.family == "encdec":
+        ne, nd = modality.encdec_split(cfg, seq_len)
+        frames = embeds((batch, ne, cfg.d_model))
+        return {"frame_embeds": frames,
+                "tokens": ints(rng.integers(0, V, size=(batch, nd))),
+                "labels": ints(rng.integers(0, V, size=(batch, nd)))}
     if cfg.family == "resnet":
         images = rng.normal(size=(batch, cfg.image_size, cfg.image_size, 3))
         labels = rng.integers(0, cfg.num_classes, size=(batch,))
@@ -68,9 +95,7 @@ def make_batch(cfg: ModelConfig, batch: int, seq_len: int, *, seed: int = 0,
                                                       dtype=torch.float32),
                 "labels": torch.from_numpy(labels).to(device=device,
                                                       dtype=torch.int64)}
-    V = max(2, cfg.vocab_size)
-    tokens = rng.integers(0, V, size=(batch, seq_len + 1))
-    tokens = torch.from_numpy(tokens).to(device=device, dtype=torch.int64)
+    tokens = ints(rng.integers(0, V, size=(batch, seq_len + 1)))
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 

@@ -6,9 +6,12 @@ by default (``--device cpu`` runs the plain PyTorch paths on the CPU).
 Serves the dense family (the default, starcoder2-3b), the MoE family
 (moonshot-v1-16b-a3b, 56.8 GB of bf16 weights at full width, which one
 80 GB card holds; arctic-480b only reduced, as 957 GB fit neither one card
-nor four), zamba2-1.2b (hybrid) and rwkv6-7b (recurrent); ``--reduced``
-is on by default and ``--no-reduced`` serves the full-width model. Parameters are drawn from
-``--seed``. Two workload modes:
+nor four), zamba2-1.2b (hybrid), rwkv6-7b (recurrent) and qwen2-vl-7b
+(multimodal, served text-only through the dense decode cell, as the
+reference serves it); ``--reduced`` is on by default and ``--no-reduced``
+serves the full-width model. The encoder-decoder seamless-m4t-large-v2
+exits with the reference's message: the driver serves decoder-only
+families. Parameters are drawn from ``--seed``. Two workload modes:
 
 - default: ``--requests N`` synthetic prompts submitted up front (more
   requests than slots: admission and retirement in waves);
@@ -299,6 +302,9 @@ def build(args: argparse.Namespace) -> Tuple[Model, dict]:
     impl = "torch" if torch.device(args.device).type == "cpu" else "cuda"
     cfg = get_config(args.arch, reduced=args.reduced).replace(
         attn_impl=impl, ssm_impl=impl, rwkv_impl=impl)
+    if cfg.family == "encdec":
+        raise SystemExit("serve driver targets decoder-only families; "
+                         "seamless decode is exercised by the dry-run")
     model = build_model(cfg, args.device)
     return model, model.init(model.generator(args.seed))
 

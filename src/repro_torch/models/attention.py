@@ -39,23 +39,31 @@ def init_attention(gen, cfg: ModelConfig, *, dtype,
     return p
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matrix product, the weight cast to
-    the activation dtype."""
+    the activation dtype (no bias, no rotary: alone, the encoder-decoder's
+    cross-attention projections)."""
     d, h, k = w.shape
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None,
+                mrope_positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> q (B,S,H,Dh), k/v (B,S,KV,Dh), rotary applied."""
+    """x: (B, S, d) -> q (B,S,H,Dh), k/v (B,S,KV,Dh), rotary applied:
+    M-RoPE when ``cfg.use_mrope`` is set and ``mrope_positions`` (B, S, 3)
+    is given, else RoPE at ``positions`` (default ``arange(S)``)."""
     dt = x.dtype
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = project(x, p["wq"]), project(x, p["wk"]), project(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    if cfg.use_mrope and mrope_positions is not None:
+        q = L.apply_mrope(q, mrope_positions, cfg.rope_theta)
+        k = L.apply_mrope(k, mrope_positions, cfg.rope_theta)
+        return q, k, v
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q = L.apply_rope(q, positions, cfg.rope_theta)

@@ -47,9 +47,11 @@ class Model:
         return stack.forward(params, self.cfg, batch, remat=remat)
 
     def init_cache(self, batch: int, max_len: int,
-                   device: Optional[torch.device] = None) -> Tree:
+                   device: Optional[torch.device] = None, *,
+                   enc_len: int = 0) -> Tree:
+        """The decode cache; ``enc_len`` sizes encdec's cross caches."""
         return transformer.init_decode_cache(
-            self.cfg, batch, max_len, device or self.device)
+            self.cfg, batch, max_len, device or self.device, enc_len=enc_len)
 
     def decode(self, params: Tree, cache: Tree,
                batch: Dict[str, torch.Tensor],
@@ -60,10 +62,12 @@ class Model:
 
     def init_paged_cache(self, batch: int, max_len: int, *, page_size: int,
                          num_pages: int,
-                         device: Optional[torch.device] = None) -> Tree:
+                         device: Optional[torch.device] = None,
+                         enc_len: int = 0) -> Tree:
         return transformer.init_paged_decode_cache(
             self.cfg, batch, max_len, page_size=page_size,
-            num_pages=num_pages, device=device or self.device)
+            num_pages=num_pages, device=device or self.device,
+            enc_len=enc_len)
 
     def decode_paged(self, params: Tree, cache: Tree,
                      batch: Dict[str, torch.Tensor], advance=None
@@ -76,19 +80,21 @@ class Model:
         return torch.Generator(device=self.device).manual_seed(seed)
 
 
-def cache_batch_axes(model: Model, max_len: int = 8) -> Tree:
+def cache_batch_axes(model: Model, max_len: int = 8,
+                     enc_len: int = 0) -> Tree:
     """Per-leaf batch-axis index of the decode cache, derived from the
     cache layout itself: the cache is built on the ``meta`` device (no
     allocation) at two batch sizes, and the one axis whose extent differs
     is the batch axis. A non-batch dimension that happens to equal the
     batch size cannot be mistaken for it."""
     meta = torch.device("meta")
-    return tree_map(_batch_axis, model.init_cache(3, max_len, device=meta),
-                    model.init_cache(5, max_len, device=meta))
+    return tree_map(_batch_axis, *(
+        model.init_cache(b, max_len, device=meta, enc_len=enc_len)
+        for b in (3, 5)))
 
 
 def paged_cache_axes(model: Model, max_len: int = 8, *, page_size: int = 4,
-                     num_pages: int = 8) -> Tree:
+                     num_pages: int = 8, enc_len: int = 0) -> Tree:
     """Per-leaf batch axis of the PAGED decode cache, by the same two
     probes as :func:`cache_batch_axes`, except that leaves whose shape
     does not scale with the batch (the physical page pools, shared across
@@ -96,7 +102,8 @@ def paged_cache_axes(model: Model, max_len: int = 8, *, page_size: int = 4,
     (``repro_torch.serving.paging.POOL_AXIS_SENTINEL``)."""
     meta = torch.device("meta")
     c1, c2 = (model.init_paged_cache(b, max_len, page_size=page_size,
-                                     num_pages=num_pages, device=meta)
+                                     num_pages=num_pages, device=meta,
+                                     enc_len=enc_len)
               for b in (3, 5))
     return tree_map(lambda a, b: _batch_axis(a, b, pool=-1), c1, c2)
 
@@ -116,6 +123,8 @@ def _batch_axis(a: torch.Tensor, b: torch.Tensor,
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
+    """The model of ``cfg`` on ``device``; ValueError for an unknown
+    family."""
     if cfg.family != "resnet":
-        transformer.require_ported(cfg)
+        transformer.check_family(cfg)
     return Model(cfg=cfg, device=resolve_device(device))

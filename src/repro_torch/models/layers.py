@@ -86,6 +86,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """Qwen2-VL multimodal rotary. x: (..., S, H, D); positions_thw:
+    (..., S, 3) = (t, h, w) ids. The D/2 frequency channels split 2:1:1
+    across the (t, h, w) sections (32/16/16 at D = 128); the angles are
+    float32 and the result is cast back to ``x.dtype``, as ``apply_rope``
+    does."""
+    D = x.shape[-1]
+    half = D // 2
+    sec_t = half // 2
+    sec_h = (half - sec_t) // 2
+    freqs = rope_freqs(D, theta, x.device)                      # (D/2,)
+    # each channel's position: t for the first section, then h, then w
+    which = torch.cat([torch.full((n,), i, device=x.device) for i, n in
+                       enumerate((sec_t, sec_h, half - sec_t - sec_h))])
+    ang = positions_thw.float().index_select(-1, which) * freqs   # (.., S, D/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------

@@ -11,7 +11,14 @@ Families ported:
                arctic's parallel dense-residual branch;
 - ``hybrid`` : zamba2 — Mamba2 backbone with a *weight-tied shared*
                attention block invoked every ``shared_attn_every`` layers;
-- ``ssm``    : rwkv6 — attention-free time-mix / channel-mix.
+- ``ssm``    : rwkv6 — attention-free time-mix / channel-mix;
+- ``vlm``    : qwen2-vl — the dense stack fed a precomputed patch-embedding
+               prefix, positions by M-RoPE (t, h, w); its decode cell is
+               the dense one (text only, 1-D RoPE at the cache index);
+- ``encdec`` : seamless — a bidirectional encoder over frame embeddings
+               and a causal decoder with cross-attention to its output;
+               decoding attends to per-layer cross K/V caches that
+               ``encode_for_decode`` fills once.
 
 The reference scans stacked layer parameters; PyTorch runs eagerly, so
 the port keeps the stacked layout (every layer leaf has a leading
@@ -21,7 +28,10 @@ reference pytree) and loops over it in Python.
 Public entry points (used by the builder, train/serve steps and engine):
     init_params(cfg, generator, device, dtype)       -> params tree
     forward(params, cfg, batch, remat)               -> (logits, aux)
-    init_decode_cache(cfg, batch, max_len, device)   -> cache tree
+    init_decode_cache(cfg, batch, max_len, device, enc_len)
+                                                     -> cache tree
+    encode_for_decode(params, cfg, frame_embeds, cache)
+                                                     -> cache (encdec)
     decode_step(params, cfg, cache, batch)           -> (logits, cache)
     init_paged_decode_cache(cfg, batch, max_len, page_size=, num_pages=,
                             device=)                 -> paged cache tree
@@ -46,25 +56,17 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unbind
 
 Tree = Dict[str, Any]
 
-PORTED = ("dense", "moe", "hybrid", "ssm")
-# Families the port does not serve yet, and the ROADMAP.md Queue 1 item
-# that ports each.
-_UNPORTED = {
-    "vlm": "Queue 1 item 6 (multimodal and encoder-decoder)",
-    "encdec": "Queue 1 item 6 (multimodal and encoder-decoder)",
-}
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "encdec")
 
 
-def require_ported(cfg: ModelConfig) -> None:
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ValueError unless ``cfg.family`` has a stack here."""
     if cfg.family == "resnet":
         raise ValueError(f"{cfg.name}: the resnet family has no transformer "
                          "stack; models/resnet.py runs it (build_model "
                          "dispatches to it)")
-    if cfg.family not in PORTED:
-        where = _UNPORTED.get(cfg.family, "no ROADMAP item")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to PyTorch "
-            f"yet; see ROADMAP.md {where}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 def _window_schedule(cfg: ModelConfig, n_layers: int) -> List[int]:
@@ -124,6 +126,19 @@ def _init_rwkv_layer(gen, cfg: ModelConfig, dtype, device) -> Tree:
     }
 
 
+def _init_cross_layer(gen, cfg: ModelConfig, dtype, device) -> Tree:
+    """seamless's decoder layer: self-attention, cross-attention, MLP."""
+    return {
+        "ln1": L.init_rms(gen, cfg.d_model, device),
+        "attn": A.init_attention(gen, cfg, dtype=dtype, device=device),
+        "lnx": L.init_rms(gen, cfg.d_model, device),
+        "xattn": A.init_attention(gen, cfg, dtype=dtype, device=device),
+        "ln2": L.init_rms(gen, cfg.d_model, device),
+        "mlp": F.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                          dtype=dtype, device=device),
+    }
+
+
 def _stack(init_fn, n: int) -> Tree:
     """``n`` layers from ``init_fn()``, drawn in order, every leaf stacked
     on a new leading axis. Each stacked leaf is allocated once and filled
@@ -149,13 +164,13 @@ def init_params(cfg: ModelConfig, generator, device,
     reference holds them; the draws are float32 either way. RMS gammas and
     the recurrent leaves the reference reads in float32 (see ``ssm.py``
     and ``rwkv.py``) are float32 always."""
-    require_ported(cfg)
+    check_family(cfg)
     dt = dtype if dtype is not None else L.torch_dtype(cfg.dtype)
     # the stacks are drawn before the embeddings: the draw order fixes
     # the weights a seed gives
     fam = cfg.family
     stacks: Tree = {}
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         stacks["layers"] = _stack(
             lambda: _init_dense_layer(generator, cfg, dt, device),
             cfg.num_layers)
@@ -175,10 +190,18 @@ def init_params(cfg: ModelConfig, generator, device,
         if leftover:
             stacks["tail"] = _stack(mamba, leftover)
         stacks["shared"] = _init_dense_layer(generator, cfg, dt, device)
-    else:
+    elif fam == "ssm":
         stacks["layers"] = _stack(
             lambda: _init_rwkv_layer(generator, cfg, dt, device),
             cfg.num_layers)
+    else:
+        stacks["enc_layers"] = _stack(
+            lambda: _init_dense_layer(generator, cfg, dt, device),
+            cfg.enc_layers)
+        stacks["enc_norm"] = L.init_rms(generator, cfg.d_model, device)
+        stacks["layers"] = _stack(
+            lambda: _init_cross_layer(generator, cfg, dt, device),
+            cfg.dec_layers)
     return {
         "embed": L.init_embed(generator, cfg.vocab_size, cfg.d_model,
                               cfg.tie_embeddings, dtype=dt, device=device),
@@ -197,32 +220,86 @@ def num_shared_invocations(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _attn_block(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, window: int,
-                positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+                positions: Optional[torch.Tensor], causal: bool = True,
+                mrope_positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln1"]["gamma"], cfg.norm_eps)
-    q, k, v = A.project_qkv(lp["attn"], h, cfg, positions=positions)
+    q, k, v = A.project_qkv(lp["attn"], h, cfg, positions=positions,
+                            mrope_positions=mrope_positions)
     att = A.attend(q, k, v, cfg, causal=causal, window=window)
     return x + A.out_proj(lp["attn"], att)
 
 
 def _dense_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig, window: int,
-                 positions: torch.Tensor, causal: bool) -> torch.Tensor:
+                 positions: Optional[torch.Tensor], causal: bool,
+                 mrope_positions: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     x = _attn_block(lp, x, cfg, window=window, positions=positions,
-                    causal=causal)
+                    causal=causal, mrope_positions=mrope_positions)
     return _mlp_block(lp, x, cfg)
 
 
 def _dense_trunk(params: Tree, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, causal: bool = True,
-                 remat: bool = True) -> torch.Tensor:
+                 positions: Optional[torch.Tensor], causal: bool = True,
+                 remat: bool = True,
+                 mrope_positions: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """The layer loop. Each layer's parameters come from one ``unbind(0)``
     of every stacked leaf per forward: indexing ``leaf[i]`` inside the
     loop would give each layer a ``select`` whose backward allocates a
     zero tensor the size of the whole stack. ``remat`` recomputes each
     layer in the backward (the reference's ``jax.checkpoint`` around the
-    scanned body)."""
+    scanned body). ``positions=None`` means ``arange(S)``."""
     layers = tree_unbind(params["layers"])
     for lp, win in zip(layers, _window_schedule(cfg, len(layers))):
-        x = _run(_dense_layer, remat, x, lp, cfg, win, positions, causal)
+        x = _run(_dense_layer, remat, x, lp, cfg, win, positions, causal,
+                 mrope_positions)
+    return x
+
+
+def _cross_attend(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
+                  k: torch.Tensor, v: torch.Tensor,
+                  last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """seamless's cross-attention: the query from the raw ``xattn``
+    projection (no rotary, and any bias ignored, as in the reference)
+    over the encoder's keys and values (B, S_enc, KV, Dh), every key
+    visible: full attention, or, in the decode cell, the decode
+    attention of one token with ``last`` (B,) = S_enc - 1 as the current
+    index of every row."""
+    hn = L.rms_norm(x, lp["lnx"]["gamma"], cfg.norm_eps)
+    q = A.project(hn, lp["xattn"]["wq"])
+    if last is None:
+        att = A.attend(q, k, v, cfg, causal=False)
+    else:
+        att = A.attend_decode(q, k, v, last, impl=cfg.attn_impl)
+    return x + A.out_proj(lp["xattn"], att)
+
+
+def _cross_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig,
+                 enc: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    x = _attn_block(lp, x, cfg, window=0, positions=positions)
+    k = A.project(enc, lp["xattn"]["wk"])
+    v = A.project(enc, lp["xattn"]["wv"])
+    x = _cross_attend(lp, x, cfg, k, v)
+    return _mlp_block(lp, x, cfg)
+
+
+def _encode(params: Tree, cfg: ModelConfig, frame_embeds: torch.Tensor,
+            remat: bool) -> torch.Tensor:
+    """seamless's encoder: the dense layers over the frame embeddings,
+    bidirectional, with RoPE at ``arange(S_enc)``, then ``enc_norm``."""
+    enc = _dense_trunk({"layers": params["enc_layers"]}, cfg,
+                       frame_embeds.to(L.torch_dtype(cfg.dtype)), None,
+                       causal=False, remat=remat)
+    return L.rms_norm(enc, params["enc_norm"]["gamma"], cfg.norm_eps)
+
+
+def _encdec_trunk(params: Tree, cfg: ModelConfig, frame_embeds: torch.Tensor,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  remat: bool = True) -> torch.Tensor:
+    enc = _encode(params, cfg, frame_embeds, remat)
+    for lp in tree_unbind(params["layers"]):
+        x = _run(_cross_layer, remat, x, lp, cfg, enc, positions)
     return x
 
 
@@ -313,25 +390,38 @@ def _rwkv_trunk(params: Tree, cfg: ModelConfig, x: torch.Tensor,
 
 def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. batch = {tokens: (B, S)}.
+    """Full-sequence forward. ``batch`` keys by family:
+      dense/moe/hybrid/ssm: tokens (B, S);
+      vlm: tokens (B, S_txt), patch_embeds (B, S_img, d), mrope_positions
+        (B, S, 3), S = S_img + S_txt;
+      encdec: frame_embeds (B, S_enc, d), tokens (B, S_dec).
 
-    Returns (logits (B, S, V) in ``cfg.dtype``, aux): ``aux`` is the MoE
-    layers' summed router auxiliary loss (float32), zero for the other
-    families, as in the reference."""
-    require_ported(cfg)
+    Returns (logits (B, S, V) in ``cfg.dtype``, over the decoder's S_dec
+    positions for encdec; aux): ``aux`` is the MoE layers' summed router
+    auxiliary loss (float32), zero for the other families, as in the
+    reference."""
+    check_family(cfg)
     dt = L.torch_dtype(cfg.dtype)
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, dt)
-    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = L.embed(params["embed"], batch["tokens"], dt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "dense":
-        x = _dense_trunk(params, cfg, x, pos, remat=remat)
-    elif cfg.family == "moe":
-        x, aux = _moe_trunk(params, cfg, x, pos, remat=remat)
-    elif cfg.family == "hybrid":
-        x = _hybrid_trunk(params, cfg, x, pos, remat=remat)
+    if cfg.family == "vlm":
+        # the patches, then the text; positions by M-RoPE only
+        x = torch.cat([batch["patch_embeds"].to(dt), x], dim=1)
+        x = _dense_trunk(params, cfg, x, None, remat=remat,
+                         mrope_positions=batch["mrope_positions"])
     else:
-        x = _rwkv_trunk(params, cfg, x, remat=remat)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        if cfg.family == "dense":
+            x = _dense_trunk(params, cfg, x, pos, remat=remat)
+        elif cfg.family == "moe":
+            x, aux = _moe_trunk(params, cfg, x, pos, remat=remat)
+        elif cfg.family == "hybrid":
+            x = _hybrid_trunk(params, cfg, x, pos, remat=remat)
+        elif cfg.family == "ssm":
+            x = _rwkv_trunk(params, cfg, x, remat=remat)
+        else:
+            x = _encdec_trunk(params, cfg, batch["frame_embeds"], x, pos,
+                              remat=remat)
     x = L.rms_norm(x, params["final_norm"]["gamma"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg.tie_embeddings)
     return logits, aux
@@ -342,7 +432,7 @@ def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device) -> Tree:
+                      device, enc_len: int = 0) -> Tree:
     """Cache tree for ``decode_step``, laid out as the reference's: every
     leaf's leading axes are the stacked layer axes, then the batch axis,
     plus the per-row write index ``pos`` (B,) int32.
@@ -354,8 +444,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
       ...), and the shared block's KV per invocation, ``shared_kv``
       (n_blocks, B, Smax, KV, Dh);
     - ssm: ``wkv`` (layers, B, H, Dh, Dh) float32 and the token-shift
-      leaves ``tok_t``, ``tok_c`` (layers, B, 1, d)."""
-    require_ported(cfg)
+      leaves ``tok_t``, ``tok_c`` (layers, B, 1, d);
+    - vlm: as dense;
+    - encdec: the decoder's self-attention ``kv`` (dec_layers, B, Smax,
+      KV, Dh) and the cross-attention caches ``xk``, ``xv`` (dec_layers,
+      B, enc_len, KV, Dh), zero until ``encode_for_decode`` fills them."""
+    check_family(cfg)
     dt = L.torch_dtype(cfg.dtype)
 
     def zeros(shape, dtype=dt):
@@ -369,8 +463,13 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
         return tree_map(lambda t: t.expand(*lead, *t.shape).clone(), tree)
 
     pos = zeros((batch,), torch.int32)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return {"kv": kv(cfg.num_layers), "pos": pos}
+    if cfg.family == "encdec":
+        cross = (cfg.dec_layers, batch, enc_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"kv": kv(cfg.dec_layers), "xk": zeros(cross),
+                "xv": zeros(cross), "pos": pos}
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
         c = {"kv": kv(cfg.num_layers - nd), "pos": pos}
@@ -449,9 +548,9 @@ def _decode_rwkv_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
 
 def _decode_attn_stacks(params: Tree, cfg: ModelConfig, cache: Tree,
                         x: torch.Tensor, attn) -> torch.Tensor:
-    """The dense and moe families' decode layers: each layer's attention
-    cell ``attn(lp, x, kc, vc, window)`` (dense or paged) over its KV
-    leaves, then its FFN block. moe runs its dense first layers over
+    """The dense (and vlm) and moe families' decode layers: each layer's
+    attention cell ``attn(lp, x, kc, vc, window)`` (dense or paged) over
+    its KV leaves, then its FFN block. moe runs its dense first layers over
     ``kv_dense`` with the MLP, then the rest over ``kv`` with the MoE
     block, every layer global, as its forward does."""
     def mlp(lp, h):
@@ -460,7 +559,7 @@ def _decode_attn_stacks(params: Tree, cfg: ModelConfig, cache: Tree,
     def moe(lp, h):
         return _moe_block(lp, h, cfg)[0]
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         stacks = [("layers", "kv", _window_schedule(cfg, cfg.num_layers),
                    mlp)]
     else:
@@ -479,7 +578,9 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
                 batch: Dict[str, torch.Tensor],
                 advance: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Tree]:
-    """One-token decode. batch = {tokens: (B, 1)}.
+    """One-token decode. batch = {tokens: (B, 1)}; the vlm decode cell
+    is the dense one (text tokens at 1-D RoPE positions ``pos``, which is
+    M-RoPE at (pos, pos, pos)), as in the reference.
 
     Returns (logits (B, 1, V), new cache). ``cache['pos']`` is the write
     index for this step. Every cache leaf but ``pos`` is updated IN PLACE
@@ -491,14 +592,22 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
     so the cache is what the reference's per-row select after the step
     gives (the logits of frozen rows are meaningless).
     """
-    require_ported(cfg)
+    check_family(cfg)
     pos = cache["pos"]
     x = L.embed(params["embed"], batch["tokens"], L.torch_dtype(cfg.dtype))
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         x = _decode_attn_stacks(
             params, cfg, cache, x,
             lambda lp, x, kc, vc, win: _decode_attn_layer(
                 lp, x, cfg, kc, vc, pos, win, advance))
+    elif cfg.family == "encdec":
+        ks, vs = cache["kv"]["k"], cache["kv"]["v"]
+        xk, xv = cache["xk"], cache["xv"]
+        last = torch.full_like(pos, xk.shape[2] - 1)
+        for i, lp in enumerate(tree_unbind(params["layers"])):
+            x = _decode_attn_layer(lp, x, cfg, ks[i], vs[i], pos, 0, advance)
+            x = _cross_attend(lp, x, cfg, xk[i], xv[i], last)
+            x = _mlp_block(lp, x, cfg)
     elif cfg.family == "hybrid":
         sp = params["shared"]
         blk = cache["blocks"]
@@ -525,12 +634,30 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree,
     return logits, {**cache, "pos": nxt}
 
 
+def encode_for_decode(params: Tree, cfg: ModelConfig,
+                      frame_embeds: torch.Tensor, cache: Tree) -> Tree:
+    """encdec: run the encoder once over ``frame_embeds`` (B, S_enc, d)
+    and return the cache with the per-layer cross K/V, ``xk`` and ``xv``
+    (dec_layers, B, S_enc, KV, Dh), in place of the ones it had, as the
+    reference does. The other leaves are the same tensors."""
+    enc = _encode(params, cfg, frame_embeds, remat=False)
+    layers = tree_unbind(params["layers"])
+    shape = (len(layers), *enc.shape[:2], cfg.num_kv_heads, cfg.head_dim)
+    xk = enc.new_empty(shape)
+    xv = enc.new_empty(shape)
+    for i, lp in enumerate(layers):
+        xk[i] = A.project(enc, lp["xattn"]["wk"])
+        xv[i] = A.project(enc, lp["xattn"]["wv"])
+    return {**cache, "xk": xk, "xv": xv}
+
+
 # ---------------------------------------------------------------------------
 # Paged decode
 # ---------------------------------------------------------------------------
 
 def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                            page_size: int, num_pages: int, device) -> Tree:
+                            page_size: int, num_pages: int, device,
+                            enc_len: int = 0) -> Tree:
     """Cache tree for ``decode_step_paged``: every length-bearing KV leaf
     becomes a physical page pool ``(layers, num_pages, page_size, KV, Dh)``
     shared by all rows, indexed through a per-row ``page_table`` leaf
@@ -541,8 +668,14 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
       indexed through the same table;
     - hybrid: the dense cache with ``shared_kv`` as pools, plus the table;
     - ssm: the dense cache plus the table (attention-free, so no pool;
-      the table keeps the engine's page accounting uniform)."""
-    require_ported(cfg)
+      the table keeps the engine's page accounting uniform);
+    - vlm: as dense;
+    - encdec: none (NotImplementedError, as in the reference)."""
+    check_family(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"paged decode cache not supported for family {cfg.family!r} "
+            "(encdec cross-attention caches are fixed-length; use dense)")
     dt = L.torch_dtype(cfg.dtype)
     pages_per_row = -(-max_len // page_size)
 
@@ -554,7 +687,7 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     table = torch.zeros((batch, pages_per_row), dtype=torch.int32,
                         device=device)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return {"kv": kv_pool(cfg.num_layers), "page_table": table,
                 "pos": pos}
     if cfg.family == "moe":
@@ -608,7 +741,7 @@ def decode_step_paged(params: Tree, cfg: ModelConfig, cache: Tree,
     conv and token-shift rows and ``pos``, frozen in place by the same
     batch-axis select as the dense cell's. Their logits are
     meaningless."""
-    require_ported(cfg)
+    check_family(cfg)
     pos = cache["pos"]
     mask, rows = _advance_rows(advance, pos)
     if cfg.family == "ssm":
@@ -619,7 +752,7 @@ def decode_step_paged(params: Tree, cfg: ModelConfig, cache: Tree,
     ks, vs = pool["k"], pool["v"]
     slots = A.page_slots(table, pos, ks.shape[2], rows)
     x = L.embed(params["embed"], batch["tokens"], L.torch_dtype(cfg.dtype))
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         x = _decode_attn_stacks(
             params, cfg, cache, x,
             lambda lp, x, kc, vc, win: _decode_attn_layer_paged(

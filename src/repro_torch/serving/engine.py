@@ -1,7 +1,10 @@
 """Batched serving engine: phase-split continuous batching over slots
-(counterpart of ``repro.serving.engine``), for the dense, hybrid
-(zamba2) and recurrent (rwkv6) families, with the dense or the paged
-cache.
+(counterpart of ``repro.serving.engine``), for the decoder-only
+families (dense, MoE, hybrid zamba2, recurrent rwkv6, and the
+multimodal qwen2-vl served text-only), with the dense or the paged
+cache. An encoder-decoder model is refused at construction: its decode
+cell attends to cross caches that only ``encode_for_decode`` fills, and
+the engine has no encoder input per request.
 
 A fixed-capacity slot array whose occupancy is runtime data: requests
 join and retire without rebuilding anything.
@@ -152,6 +155,11 @@ class ServeEngine:
         if cache_impl not in ("dense", "paged"):
             raise ValueError(f"cache_impl must be 'dense' or 'paged', "
                              f"got {cache_impl!r}")
+        if model.cfg.family == "encdec":
+            raise ValueError(
+                f"{model.cfg.name}: the engine serves decoder-only "
+                "families; an encoder-decoder model decodes through "
+                "transformer.encode_for_decode and make_serve_step")
         self.model = model
         self.params = params
         self.device = model.device

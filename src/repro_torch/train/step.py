@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.models.builder import Model
+from repro_torch.models.modality import vlm_split
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.optim.optimizers import clip_by_global_norm, global_norm
 from repro_torch.tree import tree_leaves, tree_map
@@ -64,13 +65,13 @@ def init_state(model: Model, tcfg: TrainConfig,
 
 def _token_weights(cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                    S: int) -> torch.Tensor:
-    """Per-position loss weights. The reference masks the VLM image
-    prefix; the port's families weigh every position."""
+    """Per-position loss weights (1, S): the VLM image prefix weighs 0,
+    every other position 1 (encdec's S are the decoder's positions)."""
+    device = batch["labels"].device
     if cfg.family == "vlm":
-        raise NotImplementedError("vlm loss weights: ROADMAP.md Queue 1 "
-                                  "item 6 (multimodal)")
-    return torch.ones((1, S), dtype=torch.float32,
-                      device=batch["labels"].device)
+        n_img, _ = vlm_split(cfg, S)
+        return (torch.arange(S, device=device) >= n_img).float()[None, :]
+    return torch.ones((1, S), dtype=torch.float32, device=device)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -121,8 +121,10 @@ def test_bf16_serving_weights_and_fp32_masters_agree():
     assert torch.equal(stored, masters)
 
 
-@pytest.mark.parametrize("family", ["vlm", "encdec"])
+@pytest.mark.parametrize("family", ["audio", "diffusion"])
 def test_apply_refuses_families_not_ported(family):
+    """Every family of the reference is ported; a family it does not know
+    raises ValueError, as its ``init_params`` does."""
     cfg = get_config("starcoder2-3b", reduced=True).replace(family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="unknown family"):
         build_model(cfg, "cpu")

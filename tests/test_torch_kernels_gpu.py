@@ -30,6 +30,10 @@ CASES = [
     (2, 24, 2, 65, 128, [65, 63], 0),
     (2, 48, 1, 129, 128, [129, 64], 0),
     (2, 48, 1, 600, 128, [600, 450], 100),           # window cuts tiles
+    (4, 28, 4, 512, 128, [512, 300, 1, 0], 0),       # G=7 (qwen2-vl)
+    # seamless's cross-attention: every row full, S not a tile multiple
+    (2, 16, 16, 1000, 64, [1000, 1000], 0),
+    (4, 16, 16, 1024, 64, [1024] * 4, 0),
 ]
 
 
@@ -120,6 +124,10 @@ FLASH_CASES = [
     (2, 129, 127, 8, 2, 64, False, 0),
     (1, 600, 600, 8, 2, 128, True, 200),
     (2, 700, 700, 8, 8, 64, True, 70),
+    (2, 1024, 1024, 28, 4, 128, True, 0),      # G=7 (qwen2-vl)
+    # seamless's encoder and cross-attention: non-causal at D=64
+    (2, 1024, 1024, 16, 16, 64, False, 0),
+    (2, 1000, 777, 16, 16, 64, False, 0),
 ]
 
 

@@ -31,7 +31,7 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 TOL = dict(atol=1e-5, rtol=1e-5)
 ARCHS = ("starcoder2-3b", "qwen2.5-14b", "granite-20b", "gemma3-27b",
          "moonshot-v1-16b-a3b", "arctic-480b", "zamba2-1.2b", "rwkv6-7b",
-         "resnet32-cifar10")
+         "qwen2-vl-7b", "seamless-m4t-large-v2", "resnet32-cifar10")
 # implementation selectors: the port's are "cuda" | "torch", the
 # reference's "xla" | "pallas"
 IMPLS = ("attn_impl", "ssm_impl", "rwkv_impl")

@@ -130,11 +130,13 @@ def test_batches_are_bit_equal_to_the_reference(arch):
 
 
 def test_unported_batch_families_raise():
-    """The resnet batches are ported (tests/test_torch_resnet.py); the
-    multimodal and encoder-decoder ones are not."""
-    for family in ("vlm", "encdec"):
+    """Every family's batches are ported (the multimodal and
+    encoder-decoder ones in tests/test_torch_vlm.py and
+    tests/test_torch_encdec.py); a family the reference does not know
+    raises ValueError."""
+    for family in ("audio", "diffusion"):
         cfg = C.get_config("starcoder2-3b", True).replace(family=family)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="unknown family"):
             D.make_batch(cfg, 2, 8, device="cpu")
 
 
