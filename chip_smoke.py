@@ -22,8 +22,10 @@ and serving it; the multimodal qwen2-vl-7b (28 layers, d_model 3584, 28
 heads over 4 KV heads of 128, M-RoPE, a patch-embedding prefix; 15.23
 GB), its forward and serving it; and the encoder-decoder
 seamless-m4t-large-v2 (24 + 24 layers, d_model 1024, 16 heads of 64,
-vocab 256206), its forward and its decoding. In phases that each print
-their name, ``ok`` and their wall time:
+vocab 256206), its forward and its decoding; and the SPMD layer (the
+sharding layouts, the sharded training step, the expert-parallel MoE
+routes) on a one-rank NCCL mesh. In phases that each print their name,
+``ok`` and their wall time:
 
 1. environment: torch, CUDA, the card and its power limit;
 2. build: compile the four kernels from ``src/repro_torch`` with nvcc,
@@ -102,6 +104,16 @@ their name, ``ok`` and their wall time:
     arctic-480b in float32 on the card against the same steps on the
     CPU, from the same numpy weights; the MoE models' router aux loss
     nonzero and equal on both;
+14b. spmd-train: the SPMD layer on a one-rank NCCL mesh (1 x 1) on the
+    card: the train phase's full-width starcoder2-3b and batches, 3 steps
+    of ``make_train_step(param_shardings=..., zero1_mask=...)`` under the
+    ``zero1`` and ``fsdp`` layouts at ``grad_dtype`` float32 and bfloat16
+    (the state each rank's blocks, the compute copy gathered, the
+    gradients reduce-scattered) against 3 static float32 steps: float32
+    losses, gradient norms and parameters within the CPU tests'
+    tolerances, bf16 updates with a cosine above 0.98; step walls, peak
+    memory and (zero1's, one program with fsdp's on one rank) device
+    launches;
 15. elastic: ``launch.train --full --elastic`` of starcoder2-3b (through
     its ``run``): 2 slots, a worker joining at step 1, slot 0 warned at
     step 2 (a fast save of the whole AdamW state into ``CKPT_DIR``) and
@@ -169,6 +181,16 @@ their name, ``ok`` and their wall time:
     drain (migrated tokens equal), again with the paged cache (the dense
     tokens, pages shipped), decode attention 48 times a cell, and dense
     and paged decode steps in turns (wall, device-busy share);
+23b. moe-ep: the expert-parallel MoE routes on phase 22's full-width
+    moonshot weights, on a one-rank NCCL mesh: ``moe_impl="ep"`` (layout
+    tp) against the row-local path and ``"a2a"`` (layout fsdp) against
+    its oracle (each rank's tokens dispatched row-locally at the a2a
+    capacity), at a depth of 4 in float32 (within 1e-3) and at all 48
+    layers in bf16 (1.5x the oracle's own bf16 distance from its float32
+    logits; flash 48 times a forward); then 32 greedy decode cells under
+    a2a (decode attention 48 times a cell), the tokens equal to the
+    oracle's; ``ffn.moe_routes`` shows every MoE layer took the
+    route; wall, device busy and launches of each;
 24. vlm-forward: qwen2-vl-7b at its published widths, B=4, S=2048 from
     ``make_batch`` at seed 0 (484 patch positions, a 22 x 22 grid, and
     1564 text tokens): at a depth of 4 the float32 and bf16 gates of
@@ -211,6 +233,7 @@ without one or without the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -365,6 +388,13 @@ PAGED_ARGS = ["--cache-impl", "paged", "--page-size", "16"]
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_REDUCED_DEPTH = 4
 MOE_SERVE_ARGS = SERVE_ARGS + ["--arch", MOE_ARCH]
+# the SPMD layer on a one-rank NCCL mesh (1 x 1): spmd-train runs these
+# layouts and gradient dtypes of the train phase's model and batch
+SPMD_LAYOUTS = ("zero1", "fsdp")
+SPMD_GRAD_DTYPES = ("float32", "bfloat16")
+SPMD_STEPS = 3
+PG_DIR = os.path.join(ROOT, "build", "chip_smoke_pg")
+MOE_EP_DECODE = {"B": 4, "max_len": 512, "steps": 32}
 # the multimodal phases: qwen2-vl-7b at its published widths, its forward
 # gated in float32 at a depth of 4, then at all 28 layers, and served
 VLM_ARCH = "qwen2-vl-7b"
@@ -1271,6 +1301,188 @@ def host_room(path):
             "cpus": os.cpu_count()}
 
 
+@contextlib.contextmanager
+def one_rank_group(torch):
+    """A one-rank NCCL process group on the card for the block (a file
+    store under ``build/``) and ``launch.mesh.single_device_mesh`` over
+    it: the layouts' collectives are real NCCL calls of one rank."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import single_device_mesh
+    os.makedirs(PG_DIR, exist_ok=True)
+    store = os.path.join(PG_DIR, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=0, world_size=1)
+    try:
+        yield single_device_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def spmd_train_phase(torch, card_line):
+    """The sharded training step at full width: the train phase's model
+    (starcoder2-3b, float32 masters, bf16 compute, AdamW) and batches
+    (global batch 2 x 1024, ``launch.train``'s configuration), 3 steps of
+    the static ``make_train_step``, then 3 steps of
+    ``make_train_step(param_shardings=..., zero1_mask=...)`` under each
+    layout of ``SPMD_LAYOUTS`` at each ``grad_dtype`` of
+    ``SPMD_GRAD_DTYPES`` on a one-rank NCCL mesh (every collective a real
+    call of one rank): the state is each rank's blocks, the compute copy
+    gathered once a step, the gradients reduce-scattered. Gates: float32
+    losses within 1e-5 and gradient norms within 1e-4 relative of the
+    static step's, every parameter within 3e-5 + 1e-5 x |p| (the CPU
+    tests' tolerances); bf16: the cosine between its and the static
+    float32 parameter updates above 0.98 (the reference's
+    ``test_bf16_grads_close_to_fp32``). No kernel launches (the kernels
+    have no backward). Step walls, peak memory and, for zero1 (on one
+    rank fsdp's program is the same), the device launches of a fourth,
+    profiled step."""
+    from repro_torch import sharding as S
+    from repro_torch.config import (OptimizerConfig, ScheduleConfig,
+                                    TrainConfig, get_config)
+    from repro_torch.data import ShardedDataset
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.axes import param_axes
+    from repro_torch.models.builder import build_model
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    args = launch_train.parse_args(TRAIN_ARGS)
+    cfg = get_config(args.arch, reduced=args.reduced).replace(
+        attn_impl="torch", ssm_impl="torch", rwkv_impl="torch")
+    model = build_model(cfg, "cuda")
+    base = TrainConfig(
+        optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr,
+                                  base_workers=1),
+        schedule=ScheduleConfig(kind="cosine", warmup_steps=20,
+                                total_steps=args.steps), seed=args.seed)
+    ds = ShardedDataset(cfg, global_batch=args.global_batch,
+                        seq_len=args.seq_len, seed=args.seed, device="cuda")
+    batches = [ds.global_batch_at(i) for i in range(SPMD_STEPS)]
+    axes = param_axes(cfg)
+    mask = tree_map(lambda a: "experts" not in a, axes)
+
+    def run(tcfg, inspect, mesh=None, profiled=False):
+        """SPMD_STEPS steps from the seeded masters; ``inspect(params)``
+        after them, then, if ``profiled``, one step under the profiler.
+        Returns stats."""
+        shardings = None if mesh is None else S.param_shardings(
+            axes, cfg, mesh, layout=tcfg.layout)
+        params = model.init(model.generator(tcfg.seed), dtype=torch.float32)
+        if shardings is not None:
+            params = S.shard_tree(params, shardings)
+        state = init_state(model, tcfg, params=params)
+        del params
+        step = make_train_step(model, tcfg, param_shardings=shardings,
+                               zero1_mask=None if mesh is None else mask)
+
+        def one(b):
+            with S.use_mesh(mesh, tcfg.layout):
+                return step(state, b)
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                             # the path's run starts
+        losses, norms, walls = [], [], []
+        for b in batches:
+            t0 = time.monotonic()
+            state, m = one(b)
+            losses.append(float(m["loss"]))       # syncs
+            norms.append(float(m["grad_norm"]))
+            walls.append(time.monotonic() - t0)
+        counts = read_counts()                    # and ends
+        peak = torch.cuda.max_memory_allocated()
+        check(all(map(math.isfinite, losses + norms))
+              and not any(counts.values()),
+              f"{tcfg.layout}/{tcfg.grad_dtype}: non-finite losses or "
+              f"kernel launches {counts}")
+        out = {"losses": losses, "grad_norms": norms, "step_s": walls,
+               "peak_bytes": peak, **inspect(state.params)}
+        if profiled:
+            busy, by_name = calls_profile(torch, lambda: one(batches[0]), 1)
+            out.update(profiled_busy_ms=busy, device_launches=round(sum(
+                n for _, n in by_name.values())))
+        del state, step
+        release(torch)
+        return out
+
+    def keep(params):
+        host.update((p, t.to("cpu", copy=True))
+                    for p, t in tree_leaves(params))
+        return {}
+
+    def against_static(params):
+        """Worst |got - want| - 1e-5 |want| over the leaves, and the
+        cosine of the updates from the seeded masters."""
+        p0 = dict(tree_leaves(model.init(model.generator(base.seed),
+                                         dtype=torch.float32)))
+        excess, dot, nu, nw = -1.0, 0.0, 0.0, 0.0
+        for path, got in tree_leaves(params):
+            want = host[path].to("cuda")
+            check(got.shape == want.shape, f"{path}: the 1 x 1 block "
+                                           f"{tuple(got.shape)} is not the "
+                                           f"leaf {tuple(want.shape)}")
+            excess = max(excess, float(torch.sub(got, want).abs_().sub_(
+                want.abs(), alpha=1e-5).max()))
+            du, dw = (got - p0[path]).view(-1), (want - p0[path]).view(-1)
+            dot += float(torch.dot(du, dw))
+            nu += float(torch.dot(du, du))
+            nw += float(torch.dot(dw, dw))
+            del want, du, dw
+        return {"param_excess": excess, "update_cosine":
+                dot / math.sqrt(nu * nw)}
+
+    def profile_line(st):
+        if "device_launches" not in st:
+            return "not profiled"
+        return (f"profiled step {st['profiled_busy_ms']:.1f} ms busy, "
+                f"{st['device_launches']} device launches")
+
+    # the static step is the train phase's, whose fourth step it profiles
+    host = {}
+    static = run(base, keep)
+    print(f"  static step, {cfg.name} full width, B={args.global_batch} "
+          f"S={args.seq_len}: losses " + ", ".join(
+              f"{x:.6f}" for x in static["losses"]) + "; steps " +
+          ", ".join(f"{t:.3f}" for t in static["step_s"]) + f" s; peak "
+          f"{static['peak_bytes'] / 1e9:.2f} GB [{card_line}]")
+    stats = {"static": static}
+    for layout, gd in itertools.product(SPMD_LAYOUTS, SPMD_GRAD_DTYPES):
+        tcfg = dataclasses.replace(base, layout=layout, grad_dtype=gd)
+        # on one rank fsdp and zero1 run one program (every leaf gathered
+        # whole): only zero1's steps are profiled
+        with one_rank_group(torch) as mesh:
+            got = run(tcfg, against_static, mesh,
+                      profiled=layout == SPMD_LAYOUTS[0])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(got["losses"], static["losses"]))
+        norm_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(got["grad_norms"], static["grad_norms"]))
+        print(f"  {layout} {gd} on a 1 x 1 NCCL mesh: losses " + ", ".join(
+            f"{x:.6f}" for x in got["losses"]) + f" (worst relative "
+            f"difference {loss_rel:.2e}); grad_norm {norm_rel:.2e}; "
+            f"parameters: worst |diff| - 1e-5 |p| {got['param_excess']:.2e} "
+            f"(tol 3e-5); update cosine with the static float32 step "
+            f"{got['update_cosine']:.6f}; steps " + ", ".join(
+                f"{t:.3f}" for t in got["step_s"]) + f" s; peak "
+            f"{got['peak_bytes'] / 1e9:.2f} GB; {profile_line(got)} "
+            f"[{card_line}]")
+        if gd == "float32":
+            check(loss_rel <= 1e-5 and norm_rel <= 1e-4
+                  and got["param_excess"] <= 3e-5,
+                  f"{layout}: the sharded float32 step differs from the "
+                  f"static one")
+        else:
+            check(got["update_cosine"] > 0.98, f"{layout}: bf16 gradients "
+                                               f"move the parameters "
+                                               f"elsewhere")
+        stats[f"{layout}/{gd}"] = got
+    del host
+    release(torch)
+    return stats
+
+
 def elastic_phase(torch, card_line):
     """Full-width starcoder2-3b through ``launch.train --elastic`` (a join,
     a warning with its fast save, a revocation), the fast save restored
@@ -1925,6 +2137,198 @@ def moe_serve_phase(torch, serve, model, params, card_line):
     compare = paged_step_compare(torch, serve, model, params, card_line,
                                  ["--arch", MOE_ARCH])
     return {"serve": dense, "serve_paged": paged, "step_compare": compare}
+
+
+def a2a_oracle_moe(p, x, cfg):
+    """The a2a route's oracle, as ``tests/test_torch_moe_parallel.py``
+    has it: the row-local dispatch of the rank's flattened (1, B*S, D)
+    tokens at the a2a capacity (``ffn.a2a_capacity`` of B*S)."""
+    from repro_torch.models import ffn
+    b, s, d = x.shape
+    out, aux = ffn._rows(p, x.reshape(1, b * s, d), cfg,
+                         ffn.a2a_capacity(b * s, cfg))
+    return ffn._dense_branches(p, x, out.view(b, s, d)), aux
+
+
+def rows_diff(a, b):
+    """(max|a - b| / max|b|, root mean square of a - b), in float32 one
+    batch row at a time: full-width logits in float32 are 5.4 GB."""
+    worst = top = sq = 0.0
+    for i in range(a.shape[0]):
+        d = a[i].float() - b[i].float()
+        worst = max(worst, float(d.abs().max()))
+        top = max(top, float(b[i].float().abs().max()))
+        sq += float(d.pow(2).sum())
+        del d
+    return worst / top, math.sqrt(sq / a.numel())
+
+
+def moe_ep_phase(torch, model, params, card_line):
+    """The expert-parallel MoE routes on full-width moonshot (the model
+    and weights moe-serve served), on a one-rank NCCL mesh: ``moe_impl``
+    ``"ep"`` under layout tp and ``"a2a"`` under fsdp. ``ep`` is held to
+    the row-local path, ``a2a`` to its oracle (``a2a_oracle_moe``): at a
+    depth of 4 (views of the first 4 layers) in float32 (each weight cast
+    at use) within 1e-3 x max|logit|, then all 48 layers in bf16 no
+    further from the oracle's float32 logits, in root mean square, than
+    1.5x the oracle's own bf16 logits (flash 48 times a forward). Then
+    ``MOE_EP_DECODE``'s greedy decode cells through ``make_serve_step``
+    under a2a (decode attention 48 times a cell), their tokens equal to
+    the oracle's (at M = 1 both run the same expert products on the same
+    buffers). ``ffn.moe_routes`` must show that every MoE layer took the
+    route. Wall, device busy and launches of each."""
+    from repro_torch import sharding as S
+    from repro_torch.data import make_batch
+    from repro_torch.models import ffn
+    from repro_torch.serving import with_impls
+    from repro_torch.train.step import make_serve_step
+    from repro_torch.tree import tree_map
+    cfg = model.cfg
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    B, S_ = FORWARD_BATCH
+    batch = make_batch(cfg, B, S_, seed=0, device="cuda")
+    routes = {"ep": "tp", "a2a": "fsdp"}
+
+    def oracle(impl):
+        return (patched(ffn, apply_moe=a2a_oracle_moe) if impl == "a2a"
+                else contextlib.nullcontext())
+
+    def under(mesh, layout, fn):
+        with S.use_mesh(mesh, layout):
+            return fn()
+
+    stats = {}
+    with one_rank_group(torch) as mesh, torch.no_grad():
+        # float32 at a depth of 4: views of the first 4 layers
+        depth = MOE_REDUCED_DEPTH
+        p4 = dict(params, layers=tree_map(
+            lambda t: t[:depth - cfg.first_dense_layers], params["layers"]))
+        m4 = with_impls(model, num_layers=depth, dtype="float32")
+        for impl, layout in routes.items():
+            with oracle(impl):
+                want = m4.apply(p4, batch)[0]
+            ffn.moe_routes.clear()
+            got = under(mesh, layout, lambda: with_impls(
+                m4, moe_impl=impl).apply(p4, batch)[0])
+            taken = dict(ffn.moe_routes)
+            rel32, _ = rows_diff(got, want)
+            print(f"  {impl} ({layout}) at depth {depth}, float32: logits "
+                  f"against the {'oracle' if impl == 'a2a' else 'row-local'}"
+                  f" path max|diff|/max|logit| {rel32:.3e} (tol 1e-3); "
+                  f"routes {taken}")
+            check(rel32 <= 1e-3
+                  and taken == {impl: depth - cfg.first_dense_layers},
+                  f"{impl} at depth {depth} in float32 disagrees or took "
+                  f"routes {taken}")
+            stats[f"{impl}_depth{depth}_fp32_rel"] = rel32
+            del want, got
+        release(torch)
+
+        # all 48 layers in bf16
+        for impl, layout in routes.items():
+            with oracle(impl):
+                want32 = with_impls(model, dtype="float32").apply(
+                    params, batch)[0]
+                plain16 = model.apply(params, batch)[0]
+                _, floor = rows_diff(plain16, want32)
+            kmodel = with_impls(model, moe_impl=impl)
+            zero_counts()                         # the path's run starts
+            ffn.moe_routes.clear()
+            t0 = time.monotonic()
+            got, aux = under(mesh, layout, lambda: kmodel.apply(params,
+                                                                batch))
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+            counts, taken = read_counts(), dict(ffn.moe_routes)  # and ends
+            rel16, rms16 = rows_diff(got, want32)
+            agree = float((got.argmax(-1) == plain16.argmax(-1)).float()
+                          .mean())
+            finite = bool(torch.isfinite(got).all())
+            del got, want32, plain16
+            busy, by_name = calls_profile(torch, lambda: under(
+                mesh, layout, lambda: kmodel.apply(params, batch)), 1)
+            launches = round(sum(n for _, n in by_name.values()))
+            print(f"  {impl} ({layout}) full depth B={B} S={S_} bf16: "
+                  f"{wall:.1f} ms wall, {busy:.2f} ms device busy, "
+                  f"{launches} device launches; kernels {counts}; routes "
+                  f"{taken}; aux {float(aux):.4f}; rms diff from the "
+                  f"float32 oracle {rms16:.4f}, the oracle's bf16 "
+                  f"{floor:.4f} (tol 1.5x); max|diff|/max|logit| "
+                  f"{rel16:.3e}; argmax agreement with the oracle's bf16 "
+                  f"{agree:.4f} [{card_line}]")
+            check(finite and math.isfinite(float(aux)) and float(aux) > 0,
+                  f"{impl} full-depth forward output malformed")
+            check(counts["flash_attention"] == cfg.num_layers
+                  and counts["decode_attention"] == 0
+                  and taken == {impl: n_moe},
+                  f"{impl} full-depth forward launched {counts}, routes "
+                  f"{taken}")
+            check(rms16 <= 1.5 * floor, f"{impl} full depth in bf16: further "
+                                        f"from the float32 oracle than its "
+                                        f"bf16 path")
+            stats[impl] = {"wall_ms": wall, "busy_ms": busy,
+                           "device_launches": launches,
+                           "flash_launches": counts["flash_attention"],
+                           "routes": taken, "rms_vs_fp32": rms16,
+                           "oracle_bf16_rms_vs_fp32": floor,
+                           "rel_vs_fp32": rel16, "argmax_agreement": agree}
+            release(torch)
+
+        # greedy decode cells under a2a (S = 1: the route runs there too)
+        Bd, max_len, steps = (MOE_EP_DECODE[k] for k in
+                              ("B", "max_len", "steps"))
+        first = batch["tokens"][:Bd, :1]
+
+        def greedy(m, ctx, timed=False):
+            step = make_serve_step(m)
+            cache = m.init_cache(Bd, max_len)
+            tok, toks, walls = first, [], []
+            with ctx:
+                for _ in range(steps):
+                    t0 = time.monotonic()
+                    tok, cache = step(params, cache, tok)
+                    if timed:
+                        torch.cuda.synchronize()
+                    walls.append((time.monotonic() - t0) * 1e3)
+                    toks.append(tok)
+            torch.cuda.synchronize()
+            return torch.cat(toks, 1), walls, cache, step
+
+        a2a = with_impls(model, moe_impl="a2a")
+        zero_counts()                             # the path's run starts
+        ffn.moe_routes.clear()
+        toks, walls, cache, step = greedy(a2a, S.use_mesh(mesh, "fsdp"),
+                                          timed=True)
+        counts, taken = read_counts(), dict(ffn.moe_routes)   # and ends
+        check(counts["decode_attention"] == cfg.num_layers * steps
+              and counts["flash_attention"] == 0
+              and taken == {"a2a": n_moe * steps},
+              f"{steps} a2a decode cells launched {counts}, routes {taken}")
+        busy, by_name = calls_profile(torch, lambda: under(
+            mesh, "fsdp", lambda: step(params, cache, toks[:, -1:])), 1)
+        launches = round(sum(n for _, n in by_name.values()))
+        wall = sorted(walls)[len(walls) // 2]
+        del cache
+        with oracle("a2a"):
+            want = greedy(model, contextlib.nullcontext())[0]
+        same = int((toks == want).all(1).sum())
+        print(f"  a2a decode, B={Bd} max_len {max_len}, {steps} greedy "
+              f"cells: host wall median {wall:.2f} ms (min {min(walls):.2f}),"
+              f" device busy {busy:.3f} ms a cell, {launches} device "
+              f"launches a cell; decode attention "
+              f"{counts['decode_attention']} launches; routes {taken}; "
+              f"tokens equal to the oracle's in {same}/{Bd} rows "
+              f"[{card_line}]")
+        check(torch.equal(toks, want), "a2a decode: tokens differ from the "
+                                       "oracle's")
+        stats["a2a_decode"] = {"cell_wall_ms_median": wall,
+                               "cell_busy_ms": busy,
+                               "cell_device_launches": launches,
+                               "decode_launches": counts["decode_attention"],
+                               "routes": taken, "rows_equal": same}
+    del batch
+    release(torch)
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -2589,6 +2993,9 @@ def main() -> int:
                       f"{arch}: the router aux is zero or differs")
             parity[arch] = worst_rel
 
+    with phase("spmd-train"):
+        spmd_stats = spmd_train_phase(torch, card_line)
+
     with phase("elastic"):
         elastic_stats = elastic_phase(torch, card_line)
 
@@ -2686,6 +3093,15 @@ def main() -> int:
                                          card_line))
         record["moonshot_launches"] = moe_stats["serve"]["launches"][
             "decode_attention"]
+
+    with phase("moe-ep"):
+        moe_stats["ep"] = moe_ep_phase(torch, mmodel, mparams, card_line)
+        flash_record["moonshot_ep_launches"] = moe_stats["ep"]["ep"][
+            "flash_launches"]
+        flash_record["moonshot_a2a_launches"] = moe_stats["ep"]["a2a"][
+            "flash_launches"]
+        record["moonshot_a2a_launches"] = moe_stats["ep"]["a2a_decode"][
+            "decode_launches"]
         # moonshot's 56.8 GB go before the multimodal model comes
         del mmodel, mparams
         release(torch)
@@ -2814,6 +3230,7 @@ def main() -> int:
                           "serve": serve_stats, "profile": profile_stats,
                           "serve_paged": paged_stats, "fleet": fleet_stats,
                           "train": train_stats, "train_parity": parity,
+                          "spmd_train": spmd_stats,
                           "elastic": elastic_stats,
                           "checkpoint": checkpoint_stats,
                           "resnet32": resnet_stats, "gym": gym_stats,

@@ -18,12 +18,23 @@ kernel's plain version and the q-chunked full attention), ``ssm_impl``
 scan). None of the kernels has a backward, as none of the reference's
 Pallas kernels has one, so a model that is differentiated is built with
 all three set to ``"torch"``.
+
+A fourth, ``moe_impl``, selects the mixture-of-experts route under a
+device mesh (``repro_torch.sharding.use_mesh``): ``"gspmd"`` (the
+reference's name; here the row-local dispatch every rank runs on its own
+rows), ``"ep"`` (experts split over the ``model`` axis, one all-reduce of
+the combined output) or ``"a2a"`` (tokens shipped to their experts'
+owners and back). Outside a mesh every value runs the row-local path.
+``MeshConfig`` is the reference's mesh shape.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Tuple
+
+
+MOE_IMPLS = ("gspmd", "ep", "a2a")
 
 
 @dataclass(frozen=True)
@@ -91,8 +102,14 @@ class ModelConfig:
     attn_impl: str = "cuda"
     ssm_impl: str = "cuda"
     rwkv_impl: str = "cuda"
+    moe_impl: str = "gspmd"        # "gspmd" (row-local) | "ep" | "a2a"
     # q-chunk size of the plain full-attention path (memory control)
     attn_chunk: int = 1024
+
+    def __post_init__(self):
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl {self.moe_impl!r} is not one of "
+                             f"{MOE_IMPLS}")
 
     @property
     def kv_groups(self) -> int:
@@ -155,6 +172,27 @@ class TrainConfig:
     compression_ratio: float = 0.01
     checkpoint_every: int = 1000
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh shape. multi_pod adds the leading 'pod' axis."""
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.pods > 1 else ("data", "model")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return ((self.pods, self.data, self.model) if self.pods > 1
+                else (self.data, self.model))
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * max(1, self.pods)
 
 
 # ---------------------------------------------------------------------------

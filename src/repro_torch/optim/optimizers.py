@@ -16,7 +16,8 @@ bias correction from an int count, weight decay as ``-lr * wd * p``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
+from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -105,11 +106,15 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Scale ``grads`` IN PLACE so their global norm is at most
-    ``max_norm``; returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    ``max_norm``; returns (grads, the norm before clipping). ``norm`` is
+    that norm when the caller has it (a sharded tree's, over all ranks);
+    by default this tree's ``global_norm``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for _, g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))

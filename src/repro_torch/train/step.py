@@ -16,8 +16,13 @@ the same tensors. It never switches implementations: the kernels have
 no backward, so the caller builds the training model with
 ``attn_impl``, ``ssm_impl`` and ``rwkv_impl`` set to ``"torch"``.
 
-Not ported: the SPMD controls (``param_shardings``, ``zero1_mask``) and
-``grad_dtype="bfloat16"``, ROADMAP.md Queue 1 item 7.
+``tcfg.grad_dtype="bfloat16"`` differentiates with respect to a bf16
+copy of the masters and casts the gradients back to float32 before the
+update. ``param_shardings`` (from ``repro_torch.sharding``) runs the step
+on a mesh of processes, one per device: ``state.params`` and the
+optimizer moments are each rank's float32 blocks (ZeRO: the moments are
+sharded as the params are), the batch is the global one, of which each
+rank takes its rows.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.models.builder import Model
 from repro_torch.models.modality import vlm_split
@@ -35,7 +42,7 @@ from repro_torch.optim.optimizers import clip_by_global_norm, global_norm
 from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Dict[str, Any]
-_SPMD = "ROADMAP.md Queue 1 item 7 (sharding and launch tooling)"
+GRAD_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -106,13 +113,16 @@ def loss_fn(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
 
 
 def value_and_grad(loss: Callable[[Tree], Tuple[torch.Tensor, Dict]],
-                   params: Tree) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+                   params: Tree, dtype: Optional[torch.dtype] = None
+                   ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
     """(gradients of ``loss(params)[0]`` as a tree like ``params``, the
     detached metrics ``loss`` returns), through leaves that share the
-    masters' storage. Each gradient is contiguous, as the optimizers'
-    chunked in-place update reads it (a conv weight's gradient may come
-    back in another memory format)."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    masters' storage, or, given ``dtype``, through a copy of them cast to
+    it (the gradients then come in ``dtype``). Each gradient is
+    contiguous, as the optimizers' chunked in-place update reads it (a
+    conv weight's gradient may come back in another memory format)."""
+    leaves = tree_map(lambda p: p.detach().to(dtype or p.dtype)
+                      .requires_grad_(), params)
     with torch.enable_grad():
         total, metrics = loss(leaves)
         grads = torch.autograd.grad(
@@ -123,15 +133,18 @@ def value_and_grad(loss: Callable[[Tree], Tuple[torch.Tensor, Dict]],
 
 
 def apply_gradients(state: TrainState, grads: Tree, metrics: Dict,
-                    lr_scale: float, tcfg: TrainConfig, opt, sched
+                    lr_scale: float, tcfg: TrainConfig, opt, sched,
+                    norm: Optional[torch.Tensor] = None
                     ) -> Tuple[TrainState, Dict[str, Any]]:
     """Clip, LR schedule x ``lr_scale``, optimizer update of the masters
     IN PLACE; returns the next state and ``metrics`` with ``grad_norm``
-    (a device scalar) and ``lr`` (a float)."""
+    (a device scalar) and ``lr`` (a float). ``norm`` is the gradients'
+    global norm when the caller has it (a sharded step's, over all
+    ranks); by default it is computed from ``grads``."""
+    gnorm = global_norm(grads) if norm is None else norm
     if tcfg.optimizer.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, tcfg.optimizer.grad_clip)
-    else:
-        gnorm = global_norm(grads)
+        grads, _ = clip_by_global_norm(grads, tcfg.optimizer.grad_clip,
+                                       norm=gnorm)
     lr = tcfg.optimizer.lr * sched(state.step) * float(lr_scale)
     new_opt = opt.update(grads, state.opt, state.params, lr)
     return (TrainState(params=state.params, opt=new_opt, step=state.step + 1),
@@ -147,18 +160,50 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
                     ) -> Callable[..., Tuple[TrainState, Dict[str, Any]]]:
     """``train_step(state, batch, lr_scale=1.0) -> (state, metrics)``;
     metrics hold ``loss``, ``aux`` and ``grad_norm`` (device scalars) and
-    ``lr`` (a float)."""
-    if param_shardings is not None or zero1_mask is not None:
-        raise NotImplementedError(f"param_shardings/zero1: {_SPMD}")
-    if tcfg.grad_dtype != "float32":
-        raise NotImplementedError(f"grad_dtype={tcfg.grad_dtype!r}: {_SPMD}")
+    ``lr`` (a float).
+
+    ``param_shardings`` (a tree of ``sharding.NamedSharding`` matching the
+    params; every rank calls the step, under ``use_mesh`` when the model
+    reads the mesh) runs the step on the mesh's ranks:
+
+    - the compute copy (bf16 under ``grad_dtype="bfloat16"``, cast from
+      each rank's blocks) is gathered through the differentiable
+      ``sharding.gather`` once per step, and the forward and backward use
+      it; the backward of the gather reduce-scatters the gradients at
+      their own dtype;
+    - layout ``"zero1"``: ``zero1_mask`` (a bool tree, optional) leaves
+      out leaves to keep expert-parallel: an expert weight stack keeps
+      its ``experts`` entry (the MoE routes read the rank's experts) and
+      is gathered over its other entries; any other leaf is gathered
+      whole, as the reference's shard_map in_specs ask for it. Layouts
+      ``"fsdp"`` and ``"tp"`` gather every leaf whole too (the reference
+      gathers fsdp's per use and computes tp's model dims sharded;
+      ROADMAP.md Queue 1 item 7);
+    - each rank's loss, a mean over its rows, is weighted by 1 / (number
+      of ranks), so that the sum over ranks is the global mean (ranks that
+      hold the same rows, the model ranks under tp, split it); every
+      gradient is then summed over all ranks: the reduce-scatter covers
+      the axes a leaf was gathered over, an all-reduce the axes its spec
+      does not name (a replicated leaf is all-reduced over every axis);
+    - ``grad_norm`` and clipping use the norm over all blocks, each
+      replicated block counted once; the reported ``loss`` and ``aux``
+      are the global means.
+    """
+    if tcfg.grad_dtype not in GRAD_DTYPES:
+        raise ValueError(f"grad_dtype {tcfg.grad_dtype!r} is not one of "
+                         f"{sorted(GRAD_DTYPES)}")
+    compute_dt = GRAD_DTYPES[tcfg.grad_dtype]
     opt = make_optimizer(tcfg.optimizer)
     sched = make_schedule(tcfg.schedule)
-
-    def grads_of(params: Tree, batch: Dict[str, torch.Tensor]
-                 ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
-        return value_and_grad(lambda p: loss_fn(model, p, batch, tcfg),
-                              params)
+    if param_shardings is None:
+        def grads_of(params: Tree, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+            return value_and_grad(lambda p: loss_fn(model, p, batch, tcfg),
+                                  params, compute_dt)
+        norm_of = global_norm
+    else:
+        grads_of, norm_of = _sharded(model, tcfg, param_shardings,
+                                     zero1_mask, compute_dt)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    lr_scale: float = 1.0
@@ -172,7 +217,7 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
                           for key, x in batch.items()}
                 g, m = grads_of(state.params, mbatch)
                 if grads is None:
-                    grads = tree_map(lambda b: b.div_(k), g)
+                    grads = tree_map(lambda b: b.div_(k).float(), g)
                     metrics = {key: v / k for key, v in m.items()}
                 else:
                     tree_map(lambda a, b: a.add_(b.div_(k)), grads, g)
@@ -180,10 +225,73 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
                                for key, v in m.items()}
         else:
             grads, metrics = grads_of(state.params, batch)
+            grads = tree_map(lambda g: g.float(), grads)
         return apply_gradients(state, grads, metrics, lr_scale, tcfg, opt,
-                               sched)
+                               sched, norm=norm_of(grads))
 
     return train_step
+
+
+def _sharded(model: Model, tcfg: TrainConfig, shardings: Tree, zero1_mask,
+             compute_dt: Optional[torch.dtype]):
+    """(grads_of, norm_of) of the sharded step (``make_train_step``)."""
+    mesh = next(tree_leaves(shardings))[1].mesh
+    everything = tuple(mesh.axis_names)
+
+    def gather_spec(s: sharding.NamedSharding, whole: bool):
+        if whole:
+            return s.spec
+        own = [a for a in s.axes if a not in ("layers", "blocks")]
+        if own[:1] != ["experts"]:
+            return s.spec
+        return tuple(None if a == "experts" else e
+                     for a, e in zip(s.axes, s.spec))
+
+    if tcfg.layout == "zero1" and zero1_mask is not None:
+        specs = tree_map(gather_spec, shardings, zero1_mask)
+    else:
+        specs = tree_map(lambda s: s.spec, shardings)
+    # the axes each leaf's gradient is all-reduced over after the
+    # reduce-scatter: those its spec does not name
+    rest = tree_map(lambda s: tuple(
+        a for a in everything if a not in sharding.spec_axes(s.spec)),
+        shardings)
+
+    def grads_of(params: Tree, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+        rows = sharding.local_batch(batch, mesh, tcfg.layout)
+
+        def loss(blocks: Tree):
+            full = tree_map(lambda x, spec: sharding.gather(x, spec, mesh),
+                            blocks, specs)
+            total, metrics = loss_fn(model, full, rows, tcfg)
+            return total / mesh.size, metrics
+
+        grads, metrics = value_and_grad(loss, params, compute_dt)
+        with torch.no_grad():
+            def reduce(g, axes):
+                if axes:
+                    dist.all_reduce(g, op=dist.ReduceOp.SUM,
+                                    group=mesh.group(axes))
+                return g
+            grads = tree_map(reduce, grads, rest)
+            keys = sorted(metrics)
+            m = torch.stack([metrics[k].float() for k in keys]) / mesh.size
+            dist.all_reduce(m, op=dist.ReduceOp.SUM,
+                            group=mesh.group(everything))
+        return grads, dict(zip(keys, m.unbind()))
+
+    @torch.no_grad()
+    def norm_of(grads: Tree) -> torch.Tensor:
+        sq = sum(torch.linalg.vector_norm(g.float()) ** 2
+                 / sharding.replication(s.spec, mesh)
+                 for (_, g), (_, s) in zip(tree_leaves(grads),
+                                           tree_leaves(shardings)))
+        dist.all_reduce(sq, op=dist.ReduceOp.SUM,
+                        group=mesh.group(everything))
+        return torch.sqrt(sq)
+
+    return grads_of, norm_of
 
 
 # ---------------------------------------------------------------------------

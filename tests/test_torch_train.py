@@ -385,13 +385,23 @@ def test_bridge_loads_adamw_state():
 
 
 def test_unported_step_options_raise():
+    """The SPMD controls and bf16 gradients are ported (held in
+    ``test_torch_layout_training.py``): the step builds with them, and
+    only a gradient dtype neither package knows raises."""
+    from repro_torch import sharding
+    from repro_torch.models.axes import param_axes
     _, model, _ = models("starcoder2-3b")
     _, tc = tcfgs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TS.make_train_step(model, tc, param_shardings={})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    mesh = sharding.MeshView(("data", "model"), (1, 1))
+    shardings = sharding.param_shardings(param_axes(model.cfg), model.cfg,
+                                         mesh)
+    assert callable(TS.make_train_step(model, tc,
+                                       param_shardings=shardings))
+    assert callable(TS.make_train_step(model, dataclasses.replace(
+        tc, grad_dtype="bfloat16")))
+    with pytest.raises(ValueError, match="grad_dtype"):
         TS.make_train_step(model, dataclasses.replace(
-            tc, grad_dtype="bfloat16"))
+            tc, grad_dtype="float16"))
 
 
 def test_init_state_holds_float32_masters():
