@@ -113,7 +113,19 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     losses, gradient norms and parameters within the CPU tests'
     tolerances, bf16 updates with a cosine above 0.98; step walls, peak
     memory and (zero1's, one program with fsdp's on one rank) device
-    launches;
+    launches, and a counted zero1 step (FLOPs, collectives);
+14c. dryrun: ``repro_torch.launch.dryrun`` tied to the card: spmd-train's
+    zero1 float32 cell (full-width starcoder2-3b, global batch 2 x 1024)
+    run on fake tensors over a fake 1 x 1 process group (a subprocess)
+    must count the FLOPs and the collectives (kind, count, bytes) that
+    the card's counted zero1 step counted; the cell's analytic FLOPs
+    against that count, its H100 roofline (compute, memory, bound)
+    against the measured step and its analytic HBM bytes against the
+    measured peak; then three production cells on 256 fake ranks on the
+    host (starcoder2-3b train_4k, moonshot-v1-16b-a3b decode_32k,
+    rwkv6-7b long_500k) through ``python -m repro_torch.launch.dryrun``,
+    each artifact's analytic numbers equal to a direct call of
+    ``repro_torch.analytic``;
 15. elastic: ``launch.train --full --elastic`` of starcoder2-3b (through
     its ``run``): 2 slots, a worker joining at step 1, slot 0 warned at
     step 2 (a fast save of the whole AdamW state into ``CKPT_DIR``) and
@@ -248,8 +260,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 TOL_TEXT = {"bfloat16": "2^-6 x (|ref| + rms(ref))",
             "float32": "1e-4 x (1 + |ref|)"}
 L2_BYTES = 50 * 2 ** 20
@@ -395,6 +405,33 @@ SPMD_GRAD_DTYPES = ("float32", "bfloat16")
 SPMD_STEPS = 3
 PG_DIR = os.path.join(ROOT, "build", "chip_smoke_pg")
 MOE_EP_DECODE = {"B": 4, "max_len": 512, "steps": 32}
+# the dryrun phase: spmd-train's zero1 float32 cell run by the dry-run on
+# a fake 1 x 1 group (in a subprocess, as the fake group is process-wide),
+# printing the cell's artifact with its collectives as its last line
+DRYRUN_TIE = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.config import (MeshConfig, OptimizerConfig, ShapeConfig,
+                                TrainConfig, get_config)
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+tcfg = TrainConfig(optimizer=OptimizerConfig(name={opt!r}),
+                   layout="zero1", grad_dtype="float32")
+with dryrun.fake_world(1):
+    counts, info = dryrun.lower_cell(
+        {arch!r}, "train_4k", multi_pod=False, tcfg_override=tcfg,
+        cfg_override=get_config({arch!r}, reduced={reduced!r}),
+        mesh_override=make_mesh(MeshConfig(data=1, model=1), "cpu"),
+        shape_override=ShapeConfig("spmd-train", "train", {seq}, {batch}))
+info["collectives"] = [(c.kind, c.out_bytes, c.group)
+                       for c in counts.collectives]
+print(json.dumps(info))
+"""
+# the production cells the dryrun phase runs on 256 fake ranks (host only)
+DRYRUN_CELLS = (("starcoder2-3b", "train_4k"),
+                ("moonshot-v1-16b-a3b", "decode_32k"),
+                ("rwkv6-7b", "long_500k"))
+DRYRUN_DIR = os.path.join(ROOT, "build", "chip_smoke_dryrun")
 # the multimodal phases: qwen2-vl-7b at its published widths, its forward
 # gated in float32 at a depth of 4, then at all 28 layers, and served
 VLM_ARCH = "qwen2-vl-7b"
@@ -466,6 +503,17 @@ def worst(got, want, bound):
     return float(err.max()), int((err > bound).sum())
 
 
+def roof(flops, nbytes, dtype):
+    """(least time in ms, "operations" or "bytes"): the H100 roofline of
+    ``flops`` at the peak for ``dtype`` and ``nbytes`` of HBM traffic,
+    from ``repro_torch.roofline``, which holds the card's rates."""
+    from repro_torch import roofline as R
+    peak = R.PEAK_FLOPS_FP32 if dtype == "float32" else R.PEAK_FLOPS_BF16
+    k = R.kernel_roofline(flops, nbytes, peak_flops=peak)
+    return k.t_bound * 1e3, ("operations" if k.bottleneck == "compute"
+                             else "bytes")
+
+
 def bound_ms(shape, dtype, lengths):
     """Least time for the work: each input byte read once (only the valid
     KV positions), the output written once, against the card's memory
@@ -478,10 +526,7 @@ def bound_ms(shape, dtype, lengths):
         valid.append(max(min(n, S) - lo, 0))
     nbytes = (2 * B * H * D + 2 * KV * D * sum(valid)) * size + 4 * B
     flops = 4 * H * D * sum(valid)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), nbytes
+    return (*roof(flops, nbytes, dtype), nbytes)
 
 
 def flash_inputs(torch, shape, dtype, gen):
@@ -513,10 +558,7 @@ def flash_bound_ms(shape, dtype):
     size = 2 if dtype == "bfloat16" else 4
     flops = 4 * B * H * D * flash_pairs(Sq, Sk, causal, window)
     nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KV * D) * size
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes"), flops, nbytes
+    return (*roof(flops, nbytes, dtype), flops, nbytes)
 
 
 def ssd_inputs(torch, shape, dtype, gen):
@@ -546,10 +588,7 @@ def ssd_bound_ms(shape, dtype):
     tri = Q * (Q + 1) // 2
     flops = B * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
     nbytes = (2 * B * S * H * P + 2 * B * S * N) * size + 4 * B * S * H
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
+    return (*roof(flops, nbytes, dtype), flops, nbytes)
 
 
 def wkv_inputs(torch, shape, gen, dtype="float32"):
@@ -587,10 +626,7 @@ def wkv_bound_ms(shape, dtype="float32"):
     flops = 5 * B * S * H * D * D
     nbytes = (4 * size + 4) * B * S * H * D + 4 * (
         H * D + (2 if with_s0 else 1) * B * H * D * D)
-    t_ops = flops / PEAK_FLOPS["float32"]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
+    return (*roof(flops, nbytes, "float32"), flops, nbytes)
 
 
 def decode_vs_plain(torch, name, gen):
@@ -1366,8 +1402,10 @@ def spmd_train_phase(torch, card_line):
 
     def run(tcfg, inspect, mesh=None, profiled=False):
         """SPMD_STEPS steps from the seeded masters; ``inspect(params)``
-        after them, then, if ``profiled``, one step under the profiler.
-        Returns stats."""
+        after them, then, if ``profiled``, one step under the profiler
+        and one counted (its FLOPs by ``FlopCounterMode``, its
+        collectives by ``roofline.record_collectives``, for the dryrun
+        phase). Returns stats."""
         shardings = None if mesh is None else S.param_shardings(
             axes, cfg, mesh, layout=tcfg.layout)
         params = model.init(model.generator(tcfg.seed), dtype=torch.float32)
@@ -1403,6 +1441,15 @@ def spmd_train_phase(torch, card_line):
             busy, by_name = calls_profile(torch, lambda: one(batches[0]), 1)
             out.update(profiled_busy_ms=busy, device_launches=round(sum(
                 n for _, n in by_name.values())))
+            from torch.utils.flop_counter import FlopCounterMode
+            from repro_torch.roofline import record_collectives
+            counter = FlopCounterMode(display=False)
+            with record_collectives() as colls, counter:
+                one(batches[0])
+            torch.cuda.synchronize()
+            out.update(counted_flops=float(counter.get_total_flops()),
+                       collectives=[(c.kind, c.out_bytes, c.group)
+                                    for c in colls])
         del state, step
         release(torch)
         return out
@@ -1481,6 +1528,140 @@ def spmd_train_phase(torch, card_line):
     del host
     release(torch)
     return stats
+
+
+def dryrun_phase(torch, card_line, spmd):
+    """``repro_torch.launch.dryrun`` against the card and at production
+    size. The tie: spmd-train's zero1 float32 cell run by the dry-run on
+    a fake 1 x 1 group (a subprocess: the fake group is process-wide)
+    must count exactly the FLOPs and the collectives (kind, count,
+    bytes) that the card's counted zero1 step counted, which makes the
+    dry-run's counts those of the card's program. Then the cell's
+    analytic FLOPs against that count, its H100 roofline against the
+    measured step and its byte model against the measured peak (not
+    gated: the byte model is traffic, not a peak). At the same time,
+    three production cells on 256 fake ranks (subprocesses of
+    ``python -m repro_torch.launch.dryrun``): each writes an OK artifact
+    whose analytic numbers equal a direct call of ``analytic``."""
+    import collections
+    from repro_torch import analytic
+    from repro_torch.config import SHAPES, ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sharding import MeshView
+    args = launch_train.parse_args(TRAIN_ARGS)
+    card_run = spmd[f"{SPMD_LAYOUTS[0]}/float32"]
+    check(SPMD_LAYOUTS[0] == "zero1" and "counted_flops" in card_run,
+          "spmd-train counted no zero1 float32 step")
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    tie_code = DRYRUN_TIE.format(src=os.path.join(ROOT, "src"),
+                                 opt=args.optimizer, arch=args.arch,
+                                 reduced=args.reduced, seq=args.seq_len,
+                                 batch=args.global_batch)
+    t0 = time.monotonic()
+    procs = {"tie": subprocess.Popen(
+        [sys.executable, "-c", tie_code], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    for arch, shape in DRYRUN_CELLS:
+        procs[(arch, shape)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out",
+             DRYRUN_DIR], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            outs[key] = proc.communicate(timeout=300)
+        wall = time.monotonic() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for key, proc in procs.items():
+        check(proc.returncode == 0, f"dryrun {key} exited "
+                                    f"{proc.returncode}: "
+                                    f"{outs[key][1][-2000:]}")
+
+    # the tie to the card
+    info = json.loads(outs["tie"][0].strip().splitlines()[-1])
+    fake = collections.Counter((k, b) for k, b, _ in info["collectives"])
+    real = collections.Counter((k, b) for k, b, _ in
+                               card_run["collectives"])
+    print(f"  tie: fake 1 x 1 {args.arch} zero1 float32 B="
+          f"{args.global_batch} S={args.seq_len}: counted FLOPs "
+          f"{info['counted_flops']:.6e} on fake tensors, "
+          f"{card_run['counted_flops']:.6e} on the card; collectives "
+          f"{sum(fake.values())} / {sum(real.values())} "
+          f"({sum(b * n for (_, b), n in fake.items()) / 1e9:.3f} / "
+          f"{sum(b * n for (_, b), n in real.items()) / 1e9:.3f} GB out); "
+          f"the four dry-run processes took {wall:.1f} s [{card_line}]")
+    check(info["counted_flops"] == card_run["counted_flops"] > 0,
+          "the dry-run's FLOP count is not the card's")
+    check(fake == real, f"the dry-run's collectives are not the card's: "
+                        f"{sorted((fake - real).items())[:4]} / "
+                        f"{sorted((real - fake).items())[:4]}")
+    roof = info["roofline"]
+    t_bound = max(roof["t_compute"], roof["t_memory"], roof["t_collective"])
+    step_s = sorted(card_run["step_s"])[len(card_run["step_s"]) // 2]
+    shape = ShapeConfig("spmd-train", "train", args.seq_len,
+                        args.global_batch)
+    print(f"  tie roofline: analytic step FLOPs {roof['hlo_flops']:.6e} = "
+          f"{roof['hlo_flops'] / info['counted_flops']:.4f} x counted; "
+          f"H100 t_compute {roof['t_compute'] * 1e3:.2f} ms, t_memory "
+          f"{roof['t_memory'] * 1e3:.2f} ms, t_collective "
+          f"{roof['t_collective'] * 1e3:.2f} ms, t_bound "
+          f"{t_bound * 1e3:.2f} ms ({roof['bottleneck']}); measured step "
+          f"{step_s:.3f} s (median of " + ", ".join(
+              f"{t:.3f}" for t in card_run["step_s"]) + f"), t_bound / step "
+          f"{t_bound / step_s:.4f}; "
+          f"analytic HBM bytes {roof['hlo_bytes'] / 1e9:.2f} GB against "
+          f"peak memory {card_run['peak_bytes'] / 1e9:.2f} GB (not gated) "
+          f"[{card_line}]")
+    check(roof["hlo_flops"] == analytic.step_flops(
+        get_config(args.arch, reduced=args.reduced), shape, "full"),
+        "the tie's analytic FLOPs")
+    out = {"tie": {"counted_flops": info["counted_flops"],
+                   "card_counted_flops": card_run["counted_flops"],
+                   "collectives": sum(fake.values()),
+                   "analytic_flops": roof["hlo_flops"],
+                   "t_compute": roof["t_compute"],
+                   "t_memory": roof["t_memory"],
+                   "t_collective": roof["t_collective"], "t_bound": t_bound,
+                   "step_s": step_s, "bound_share": t_bound / step_s,
+                   "analytic_bytes": roof["hlo_bytes"],
+                   "peak_bytes": card_run["peak_bytes"]},
+           "wall_s": wall}
+
+    # the production cells
+    mesh = MeshView(("data", "model"), (16, 16))
+    for arch, shape_name in DRYRUN_CELLS:
+        with open(os.path.join(DRYRUN_DIR,
+                               f"{arch}_{shape_name}_16x16.json")) as f:
+            art = json.load(f)
+        cfg = get_config(arch).replace(**dryrun.PLAIN_IMPLS)
+        tcfg = dryrun._tcfg(cfg)
+        shape = SHAPES[shape_name]
+        r = art["roofline"]
+        want_bytes = analytic.step_hbm_bytes(None, cfg, shape, mesh,
+                                             tcfg=tcfg).total
+        check(r["hlo_flops"] == analytic.step_flops(cfg, shape, tcfg.remat)
+              / 256 and r["hlo_bytes"] == want_bytes,
+              f"{arch} {shape_name}: the artifact's analytic numbers")
+        t_bound = max(r["t_compute"], r["t_memory"], r["t_collective"])
+        print(f"  {arch} {shape_name} 16x16 on 256 fake ranks: cell "
+              f"{art['t_lower_s']:.1f} s; bound {r['bottleneck']} "
+              f"{t_bound * 1e3:.2f} ms (compute {r['t_compute'] * 1e3:.2f}, "
+              f"memory {r['t_memory'] * 1e3:.2f}, collective "
+              f"{r['t_collective'] * 1e3:.2f} ms, H100 rates); counted "
+              f"{art['counted_flops']:.4e} FLOPs a rank; faithful "
+              f"{art['faithful']} [{card_line}]")
+        out[f"{arch}/{shape_name}"] = {
+            "cell_s": art["t_lower_s"], "bottleneck": r["bottleneck"], "t_bound": t_bound,
+            "counted_flops": art["counted_flops"],
+            "faithful": art["faithful"]}
+    return out
 
 
 def elastic_phase(torch, card_line):
@@ -2996,6 +3177,9 @@ def main() -> int:
     with phase("spmd-train"):
         spmd_stats = spmd_train_phase(torch, card_line)
 
+    with phase("dryrun"):
+        dryrun_stats = dryrun_phase(torch, card_line, spmd_stats)
+
     with phase("elastic"):
         elastic_stats = elastic_phase(torch, card_line)
 
@@ -3231,6 +3415,7 @@ def main() -> int:
                           "serve_paged": paged_stats, "fleet": fleet_stats,
                           "train": train_stats, "train_parity": parity,
                           "spmd_train": spmd_stats,
+                          "dryrun": dryrun_stats,
                           "elastic": elastic_stats,
                           "checkpoint": checkpoint_stats,
                           "resnet32": resnet_stats, "gym": gym_stats,

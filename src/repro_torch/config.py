@@ -26,6 +26,11 @@ rows), ``"ep"`` (experts split over the ``model`` axis, one all-reduce of
 the combined output) or ``"a2a"`` (tokens shipped to their experts'
 owners and back). Outside a mesh every value runs the row-local path.
 ``MeshConfig`` is the reference's mesh shape.
+
+``ShapeConfig`` and ``SHAPES`` are the reference's dry-run cells (train,
+prefill and decode input shapes), ``shape_applicable`` says which
+(arch, shape) cells run, and ``param_count`` / ``active_param_count``
+are the reference's closed-form parameter counts.
 """
 from __future__ import annotations
 
@@ -128,6 +133,127 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # Parameter count (analytic; exact for the reference's construction).
+    def param_count(self) -> int:
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        return _param_count(self, active_only=True)
+
+
+def _moe_ffn_params(cfg: ModelConfig, active_only: bool) -> int:
+    """Per-layer FFN params for an MoE layer."""
+    e = cfg.top_k if active_only else cfg.num_experts
+    routed = e * 3 * cfg.d_model * cfg.d_ff
+    shared = cfg.num_shared_experts * 3 * cfg.d_model * cfg.d_ff
+    router = cfg.d_model * cfg.num_experts
+    # arctic-style parallel dense branch; NOT moonshot's dense first layer
+    # (that one is counted by the first_dense_layers arm of _param_count)
+    dense = (3 * cfg.d_model * cfg.dense_ff
+             if cfg.dense_ff and not cfg.first_dense_layers else 0)
+    return routed + shared + router + dense
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    q = cfg.d_model * cfg.num_heads * cfg.head_dim
+    kv = 2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim
+    o = cfg.num_heads * cfg.head_dim * cfg.d_model
+    return q + kv + o
+
+
+def _dense_ffn_params(cfg: ModelConfig) -> int:
+    mult = 3 if cfg.gated_mlp else 2
+    return mult * cfg.d_model * cfg.d_ff
+
+
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    if cfg.family == "resnet":
+        # ResNet-(6n+2) on CIFAR: ~1.9M for n=5; compute exactly via the
+        # builder in models/resnet.py when instantiated; here use the known
+        # closed form for 3x3 convs with widths 16/32/64.
+        n = cfg.resnet_n
+        w = [16, 32, 64]
+        total = 3 * 3 * 3 * 16 + 16  # stem
+        for si, width in enumerate(w):
+            prev = 16 if si == 0 else w[si - 1]
+            for b in range(n):
+                cin = prev if b == 0 else width
+                total += 3 * 3 * cin * width + width      # conv1 + bn-ish
+                total += 3 * 3 * width * width + width    # conv2
+                if b == 0 and cin != width:
+                    total += cin * width                  # projection
+        total += 64 * cfg.num_classes + cfg.num_classes
+        return total
+
+    emb = cfg.vocab_size * cfg.d_model
+    out = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+
+    if cfg.family == "ssm":  # rwkv6
+        # time-mix: r,k,v,g,o projections + decay/ddlerp small params
+        per_layer = 5 * cfg.d_model * cfg.d_model + 2 * cfg.d_model * cfg.d_ff
+        return emb + out + cfg.num_layers * per_layer
+
+    if cfg.family == "hybrid":  # zamba2: mamba2 backbone + 1 shared attn blk
+        d_in = cfg.ssm_d_inner
+        conv = 4 * (d_in + 2 * cfg.ssm_heads * cfg.ssm_state)
+        per_mamba = (
+            cfg.d_model * (2 * d_in + 2 * cfg.ssm_heads * cfg.ssm_state + cfg.ssm_heads)
+            + conv + d_in * cfg.d_model
+        )
+        shared = _attn_params(cfg) + _dense_ffn_params(cfg)
+        return emb + out + cfg.num_layers * per_mamba + shared
+
+    n_layers = cfg.num_layers
+    if cfg.family == "encdec":
+        n_layers = cfg.enc_layers + cfg.dec_layers
+
+    total = emb + out
+    for i in range(n_layers):
+        total += _attn_params(cfg)
+        if cfg.family == "encdec" and i >= cfg.enc_layers:
+            total += _attn_params(cfg)  # cross attention
+        if cfg.family == "moe" and i >= cfg.first_dense_layers:
+            total += _moe_ffn_params(cfg, active_only)
+        elif cfg.family == "moe":
+            total += 3 * cfg.d_model * cfg.dense_ff  # dense first layer(s)
+        else:
+            total += _dense_ffn_params(cfg)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned per-arch shape set)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                      LONG_500K)
+SHAPES: Dict[str, ShapeConfig] = {s.name: s for s in LM_SHAPES}
+
+# Archs allowed to run long_500k (sub-quadratic sequence mixing).
+SUBQUADRATIC_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
+
+
+def shape_applicable(arch: str, shape: ShapeConfig, family: str
+                     ) -> Tuple[bool, str]:
+    """(runs?, reason-if-skipped) for an (arch, shape) cell; the reason is
+    the reference's text, word for word."""
+    if shape.name == "long_500k" and arch not in SUBQUADRATIC_ARCHS:
+        return False, "long_500k skipped: full-attention arch is quadratic at 512k (per spec; see DESIGN.md §4)"
+    return True, ""
+
 
 # ---------------------------------------------------------------------------
 # Training configuration (copies of ``repro.config``'s, same defaults)
@@ -220,6 +346,13 @@ def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
 def list_archs() -> List[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+ASSIGNED_ARCHS = (
+    "zamba2-1.2b", "qwen2.5-14b", "granite-20b", "gemma3-27b",
+    "starcoder2-3b", "moonshot-v1-16b-a3b", "arctic-480b",
+    "seamless-m4t-large-v2", "rwkv6-7b", "qwen2-vl-7b",
+)
 
 
 def _ensure_loaded() -> None:

@@ -59,43 +59,54 @@ def make_batch(cfg: ModelConfig, batch: int, seq_len: int, *, seed: int = 0,
     - resnet: normal images (B, H, W, 3) float32 and class labels (B,)
       (``seq_len`` unused).
     Integers are int64. The embeddings are normal draws, float32 x 0.02,
-    then cast, as the reference's. ValueError for an unknown family."""
+    then cast, as the reference's. On the ``meta`` device nothing is
+    drawn: the leaves are the same shapes and dtypes, without data
+    (``repro_torch.launch.specs``). ValueError for an unknown family."""
     if cfg.family not in _TOKEN_FAMILIES + ("vlm", "encdec", "resnet"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
-    device = resolve_device(device)
-    rng = np_rng or _fold(seed, step)
+    device = torch.device(device)
+    meta = device.type == "meta"
+    if not meta:
+        device = resolve_device(device)
+    rng = None if meta else (np_rng or _fold(seed, step))
 
-    def ints(a):
-        return torch.from_numpy(a).to(device=device, dtype=torch.int64)
+    def ints(high, shape):
+        if meta:
+            return torch.empty(shape, dtype=torch.int64, device=device)
+        return torch.from_numpy(rng.integers(0, high, size=shape)).to(
+            device=device, dtype=torch.int64)
+
+    def normal(shape, dtype, scale=None):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=device)
+        a = rng.normal(size=shape)
+        if scale is not None:
+            a = a.astype(np.float32) * scale
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
 
     def embeds(shape):
-        a = rng.normal(size=shape).astype(np.float32) * 0.02
-        return torch.from_numpy(a).to(device=device,
-                                      dtype=torch_dtype(cfg.dtype))
+        return normal(shape, torch_dtype(cfg.dtype), 0.02)
 
     V = max(2, cfg.vocab_size)
     if cfg.family == "vlm":
         n_img, n_txt = modality.vlm_split(cfg, seq_len)
-        tokens = ints(rng.integers(0, V, size=(batch, n_txt)))
+        tokens = ints(V, (batch, n_txt))
         patches = embeds((batch, n_img, cfg.d_model))
         return {"tokens": tokens, "patch_embeds": patches,
                 "mrope_positions": modality.mrope_positions(
                     cfg, batch, seq_len, device),
-                "labels": ints(rng.integers(0, V, size=(batch, seq_len)))}
+                "labels": ints(V, (batch, seq_len))}
     if cfg.family == "encdec":
         ne, nd = modality.encdec_split(cfg, seq_len)
         frames = embeds((batch, ne, cfg.d_model))
-        return {"frame_embeds": frames,
-                "tokens": ints(rng.integers(0, V, size=(batch, nd))),
-                "labels": ints(rng.integers(0, V, size=(batch, nd)))}
+        return {"frame_embeds": frames, "tokens": ints(V, (batch, nd)),
+                "labels": ints(V, (batch, nd))}
     if cfg.family == "resnet":
-        images = rng.normal(size=(batch, cfg.image_size, cfg.image_size, 3))
-        labels = rng.integers(0, cfg.num_classes, size=(batch,))
-        return {"images": torch.from_numpy(images).to(device=device,
-                                                      dtype=torch.float32),
-                "labels": torch.from_numpy(labels).to(device=device,
-                                                      dtype=torch.int64)}
-    tokens = ints(rng.integers(0, V, size=(batch, seq_len + 1)))
+        images = normal((batch, cfg.image_size, cfg.image_size, 3),
+                        torch.float32)
+        return {"images": images,
+                "labels": ints(cfg.num_classes, (batch,))}
+    tokens = ints(V, (batch, seq_len + 1))
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 

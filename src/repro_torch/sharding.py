@@ -19,7 +19,9 @@ well as on a :class:`Mesh` from ``repro_torch.launch.mesh``. The mesh has
 one process per device (``torch.distributed``); each process holds its
 own rows of the batch and its own blocks of the sharded state, and the
 collectives here (differentiable ``gather``, ``all_reduce``,
-``all_to_all``) move blocks between them.
+``all_to_all``) move blocks between them. Each collective, forward and
+backward, reports itself to the recorders of
+``repro_torch.roofline.record_collectives``.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config import MeshConfig, ModelConfig
+from repro_torch.roofline import Collective
 from repro_torch.tree import tree_map
 
 Spec = Tuple[Any, ...]
@@ -344,17 +347,46 @@ def shard_act(x: torch.Tensor, axes: Sequence[Optional[str]]
 # Execution: blocks and differentiable collectives
 # ---------------------------------------------------------------------------
 
+# The open recorders of ``repro_torch.roofline.record_collectives``: each
+# collective below appends its record to every one. Empty, the check
+# costs one read.
+recorders: list = []
+
+
+def _record(kind: str, out: torch.Tensor, group) -> None:
+    c = Collective(kind, out.numel() * out.element_size(),
+                   dist.get_world_size(group))
+    for r in recorders:
+        r.append(c)
+
+
 def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
     # torch 2.13 renames all_gather_into_tensor (the name 2.11 has)
     fn = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     fn(out, x, group=group)
+    if recorders:
+        _record("all-gather", out, group)
 
 
 def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group) -> None:
     fn = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
     fn(out, x, op=dist.ReduceOp.SUM, group=group)
+    if recorders:
+        _record("reduce-scatter", out, group)
+
+
+def _all_reduce(x: torch.Tensor, group) -> None:
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    if recorders:
+        _record("all-reduce", x, group)
+
+
+def _all_to_all(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    dist.all_to_all_single(out, x, group=group)
+    if recorders:
+        _record("all-to-all", out, group)
 
 
 class _Gather(torch.autograd.Function):
@@ -386,13 +418,13 @@ class _AllReduce(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(out, group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        _all_reduce(out, ctx.group)
         return out, None
 
 
@@ -405,13 +437,13 @@ class _AllToAll(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
+        _all_to_all(out, x.contiguous(), group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = torch.empty_like(grad)
-        dist.all_to_all_single(out, grad.contiguous(), group=ctx.group)
+        _all_to_all(out, grad.contiguous(), ctx.group)
         return out, None
 
 
@@ -425,6 +457,14 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
                ) -> torch.Tensor:
     """Differentiable equal-split all-to-all over the ranks of ``axes``."""
     return _AllToAll.apply(x, mesh.group(axes))
+
+
+def all_reduce_(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
+                ) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axes``, in place and outside
+    autograd; returns ``x``."""
+    _all_reduce(x, mesh.group(axes))
+    return x
 
 
 def local_shard(full: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:

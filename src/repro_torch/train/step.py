@@ -31,7 +31,6 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import sharding
 from repro_torch.config import ModelConfig, TrainConfig
@@ -269,16 +268,12 @@ def _sharded(model: Model, tcfg: TrainConfig, shardings: Tree, zero1_mask,
 
         grads, metrics = value_and_grad(loss, params, compute_dt)
         with torch.no_grad():
-            def reduce(g, axes):
-                if axes:
-                    dist.all_reduce(g, op=dist.ReduceOp.SUM,
-                                    group=mesh.group(axes))
-                return g
-            grads = tree_map(reduce, grads, rest)
+            grads = tree_map(
+                lambda g, axes: sharding.all_reduce_(g, mesh, axes)
+                if axes else g, grads, rest)
             keys = sorted(metrics)
             m = torch.stack([metrics[k].float() for k in keys]) / mesh.size
-            dist.all_reduce(m, op=dist.ReduceOp.SUM,
-                            group=mesh.group(everything))
+            sharding.all_reduce_(m, mesh, everything)
         return grads, dict(zip(keys, m.unbind()))
 
     @torch.no_grad()
@@ -287,9 +282,7 @@ def _sharded(model: Model, tcfg: TrainConfig, shardings: Tree, zero1_mask,
                  / sharding.replication(s.spec, mesh)
                  for (_, g), (_, s) in zip(tree_leaves(grads),
                                            tree_leaves(shardings)))
-        dist.all_reduce(sq, op=dist.ReduceOp.SUM,
-                        group=mesh.group(everything))
-        return torch.sqrt(sq)
+        return torch.sqrt(sharding.all_reduce_(sq, mesh, everything))
 
     return grads_of, norm_of
 
