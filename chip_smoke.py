@@ -93,7 +93,17 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
 12. forward: ``Model.apply`` of starcoder2-3b on one batch of 4 x 2048
     tokens through the flash kernel and through the plain attention;
     logits must agree, and the kernel must run once per layer; device
-    time from torch.profiler;
+    time from torch.profiler (a profiled forward after a warm-up one, in
+    every forward phase);
+12b. tp-serve: the same weights through the tp layout's sharded
+    programs on a one-rank NCCL mesh: ``make_forward(param_shardings=)``
+    on the forward's batch, then a 16-token prompt through the sharded
+    ``make_prefill_step`` and 32 cells of the sharded ``make_serve_step``
+    on the rank's cache block (per-use gathers, the heads, ff and
+    vocabulary as the rank's blocks, their all-reduces); logits within
+    the bf16 gate of the unsharded kernel path's, tokens equal to the
+    unsharded steps', flash once per layer, decode attention once per
+    layer a cell;
 13. train: three steps of ``python -m repro_torch.launch.train --full``
     (through its ``run``), finite losses and gradient norms, the first
     loss near ln(vocab); a fourth step under torch.profiler; then
@@ -106,19 +116,22 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     nonzero and equal on both;
 14b. spmd-train: the SPMD layer on a one-rank NCCL mesh (1 x 1) on the
     card: the train phase's full-width starcoder2-3b and batches, 3 steps
-    of ``make_train_step(param_shardings=..., zero1_mask=...)`` under the
-    ``zero1`` and ``fsdp`` layouts at ``grad_dtype`` float32 and bfloat16
-    (the state each rank's blocks, the compute copy gathered, the
-    gradients reduce-scattered) against 3 static float32 steps: float32
-    losses, gradient norms and parameters within the CPU tests'
-    tolerances, bf16 updates with a cosine above 0.98; step walls, peak
-    memory and (zero1's, one program with fsdp's on one rank) device
-    launches, and a counted zero1 step (FLOPs, collectives);
+    of ``make_train_step(param_shardings=..., zero1_mask=...)`` under
+    ``zero1`` and ``fsdp`` at ``grad_dtype`` float32 and bfloat16 and
+    under ``tp`` at float32 (the state each rank's blocks; zero1 gathers
+    the compute copy once a step, fsdp and tp per use, tp with its
+    tensor-parallel compute and vocabulary-parallel loss; the gradients
+    reduce-scattered) against 3 static float32 steps: float32 losses,
+    gradient norms and parameters within the CPU tests' tolerances, bf16
+    updates with a cosine above 0.98; step walls, peak memory and, for
+    zero1's and fsdp's float32 runs, the device launches of a profiled
+    step and a counted step (FLOPs, collectives);
 14c. dryrun: ``repro_torch.launch.dryrun`` tied to the card: spmd-train's
-    zero1 float32 cell (full-width starcoder2-3b, global batch 2 x 1024)
-    run on fake tensors over a fake 1 x 1 process group (a subprocess)
-    must count the FLOPs and the collectives (kind, count, bytes) that
-    the card's counted zero1 step counted; the cell's analytic FLOPs
+    zero1 and fsdp float32 cells (full-width starcoder2-3b, global batch
+    2 x 1024) run on fake tensors over a fake 1 x 1 process group (a
+    subprocess each) must count the FLOPs and the collectives (kind,
+    count, bytes) that the card's counted step of that layout counted;
+    each cell's analytic FLOPs
     against that count, its H100 roofline (compute, memory, bound)
     against the measured step and its analytic HBM bytes against the
     measured peak; then three production cells on 256 fake ranks on the
@@ -223,6 +236,16 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     ``make_serve_step`` (decode attention 48 times a cell: self and
     cross); the float32 kernel path's tokens equal the plain path's;
     the decode cell's host wall and device busy;
+27b. decode-seq-split: the decode kernel at zamba2's long_500k attention
+    shape (B = 1, H = KV = 32, D = 64, S = 524,288, bf16; K and V 4.3
+    GB), the cache split into 2 and into 16 blocks: each block's partial
+    (its offset, its (m, l) output), merged, against the unsplit kernel
+    call and the plain version within the bf16 gate, for the whole
+    cache, a length ending inside a block, a window across a block edge
+    and a length past the cache; the unsplit call's (m, l) against the
+    plain version's; device times of the unsplit call with and without
+    the (m, l) output, the plain version and mask-free SDPA, beside the
+    bound;
 28. timing: device time of each kernel, its plain version and, where
     one PyTorch call computes the same function,
     ``scaled_dot_product_attention`` (the library yardstick, which the
@@ -399,15 +422,33 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_REDUCED_DEPTH = 4
 MOE_SERVE_ARGS = SERVE_ARGS + ["--arch", MOE_ARCH]
 # the SPMD layer on a one-rank NCCL mesh (1 x 1): spmd-train runs these
-# layouts and gradient dtypes of the train phase's model and batch
-SPMD_LAYOUTS = ("zero1", "fsdp")
-SPMD_GRAD_DTYPES = ("float32", "bfloat16")
+# (layout, gradient dtype) pairs of the train phase's model and batch, and
+# profiles and counts the float32 steps of SPMD_COUNTED (zero1 gathers
+# once a step, fsdp per use: two programs), which the dryrun phase ties
+SPMD_RUNS = (("zero1", "float32"), ("zero1", "bfloat16"),
+             ("fsdp", "float32"), ("fsdp", "bfloat16"), ("tp", "float32"))
+SPMD_COUNTED = ("zero1", "fsdp")
 SPMD_STEPS = 3
 PG_DIR = os.path.join(ROOT, "build", "chip_smoke_pg")
 MOE_EP_DECODE = {"B": 4, "max_len": 512, "steps": 32}
-# the dryrun phase: spmd-train's zero1 float32 cell run by the dry-run on
-# a fake 1 x 1 group (in a subprocess, as the fake group is process-wide),
-# printing the cell's artifact with its collectives as its last line
+# tp-serve: the serve phase's starcoder2-3b through the sharded forward
+# (FORWARD_BATCH) and the sharded prefill and serve steps of the tp layout
+# on a one-rank NCCL mesh: B rows, a prompt, greedy cells
+TP_SERVE = {"B": 4, "max_len": 512, "prompt": 16, "steps": 32}
+# decode-seq-split: the decode kernel at zamba2-1.2b's long_500k attention
+# shape (its shared block: H = KV = 32, D = 64; B = 1, a 524,288-position
+# cache, bf16: K and V 4.3 GB), the cache split into each count of blocks;
+# (length, window) cases: the whole cache, a length that ends inside a
+# block, a window across the middle block edge (a 16-block edge too),
+# a length past the cache
+SEQ_SPLIT = {"B": 1, "H": 32, "KV": 32, "S": 524288, "D": 64,
+             "blocks": (2, 16)}
+SEQ_SPLIT_CASES = ((524288, 0), (5 * 32768 + 12345, 0),
+                   (262144 + 1000, 4096), (524288 + 100, 0))
+# the dryrun phase: spmd-train's counted float32 cells (SPMD_COUNTED) run
+# by the dry-run on a fake 1 x 1 group (in a subprocess each, as the fake
+# group is process-wide), printing the cell's artifact with its
+# collectives as its last line
 DRYRUN_TIE = """
 import json, sys
 sys.path.insert(0, {src!r})
@@ -416,7 +457,7 @@ from repro_torch.config import (MeshConfig, OptimizerConfig, ShapeConfig,
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
 tcfg = TrainConfig(optimizer=OptimizerConfig(name={opt!r}),
-                   layout="zero1", grad_dtype="float32")
+                   layout={layout!r}, grad_dtype="float32")
 with dryrun.fake_world(1):
     counts, info = dryrun.lower_cell(
         {arch!r}, "train_4k", multi_pod=False, tcfg_override=tcfg,
@@ -1144,11 +1185,13 @@ def forward_check(torch, model, plain_model, params, batch, expect,
     ``params``; given ``params`` itself, each weight is cast at use (the
     same values, without a float32 copy of the model).
 
-    Then one more forward under torch.profiler: device busy time, each
-    kernel's device time and launches (which must equal its launches
-    too), and the largest kernels. Returns stats."""
+    Then two more forwards under torch.profiler, the first its warm-up
+    step, the second its active one (a profile that opens on the
+    forward it records has missed one of 72 flash launches, once):
+    device busy time, each kernel's device time and launches (which must
+    equal its launches too), and the largest kernels. Returns stats."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.serving import with_impls
     from repro_torch.tree import tree_map
     cfg = model.cfg
@@ -1216,10 +1259,14 @@ def forward_check(torch, model, plain_model, params, batch, expect,
                      bf16_rms_vs_fp32_plain=floor)
         del k32, p32
     del got, want
-    with torch.no_grad(), profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.apply(params, batch)
-        torch.cuda.synchronize()
+    with torch.no_grad(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1,
+                              repeat=1)) as prof:
+        for _ in range(2):
+            model.apply(params, batch)
+            torch.cuda.synchronize()
+            prof.step()
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     by_name = {}
@@ -1363,19 +1410,22 @@ def spmd_train_phase(torch, card_line):
     (starcoder2-3b, float32 masters, bf16 compute, AdamW) and batches
     (global batch 2 x 1024, ``launch.train``'s configuration), 3 steps of
     the static ``make_train_step``, then 3 steps of
-    ``make_train_step(param_shardings=..., zero1_mask=...)`` under each
-    layout of ``SPMD_LAYOUTS`` at each ``grad_dtype`` of
-    ``SPMD_GRAD_DTYPES`` on a one-rank NCCL mesh (every collective a real
-    call of one rank): the state is each rank's blocks, the compute copy
-    gathered once a step, the gradients reduce-scattered. Gates: float32
-    losses within 1e-5 and gradient norms within 1e-4 relative of the
-    static step's, every parameter within 3e-5 + 1e-5 x |p| (the CPU
+    ``make_train_step(param_shardings=..., zero1_mask=...)`` for each
+    (layout, ``grad_dtype``) of ``SPMD_RUNS`` on a one-rank NCCL mesh
+    (every collective a real call of one rank): the state is each rank's
+    blocks; zero1 gathers the compute copy once a step, fsdp and tp each
+    layer's blocks where the layer runs (again in the remat recompute),
+    tp computing the attention heads, ``ff`` and the vocabulary as the
+    rank's blocks (here the whole of them) with its all-reduces and the
+    vocabulary-parallel loss; the gradients reduce-scattered. Gates:
+    float32 losses within 1e-5 and gradient norms within 1e-4 relative of
+    the static step's, every parameter within 3e-5 + 1e-5 x |p| (the CPU
     tests' tolerances); bf16: the cosine between its and the static
     float32 parameter updates above 0.98 (the reference's
     ``test_bf16_grads_close_to_fp32``). No kernel launches (the kernels
-    have no backward). Step walls, peak memory and, for zero1 (on one
-    rank fsdp's program is the same), the device launches of a fourth,
-    profiled step."""
+    have no backward). Step walls, peak memory and, for the float32 runs
+    of ``SPMD_COUNTED`` (two programs), the device launches of a fourth,
+    profiled step and a fifth, counted one (FLOPs, collectives)."""
     from repro_torch import sharding as S
     from repro_torch.config import (OptimizerConfig, ScheduleConfig,
                                     TrainConfig, get_config)
@@ -1495,13 +1545,11 @@ def spmd_train_phase(torch, card_line):
           ", ".join(f"{t:.3f}" for t in static["step_s"]) + f" s; peak "
           f"{static['peak_bytes'] / 1e9:.2f} GB [{card_line}]")
     stats = {"static": static}
-    for layout, gd in itertools.product(SPMD_LAYOUTS, SPMD_GRAD_DTYPES):
+    for layout, gd in SPMD_RUNS:
         tcfg = dataclasses.replace(base, layout=layout, grad_dtype=gd)
-        # on one rank fsdp and zero1 run one program (every leaf gathered
-        # whole): only zero1's steps are profiled
         with one_rank_group(torch) as mesh:
             got = run(tcfg, against_static, mesh,
-                      profiled=layout == SPMD_LAYOUTS[0])
+                      profiled=gd == "float32" and layout in SPMD_COUNTED)
         loss_rel = max(abs(a - b) / abs(b) for a, b in
                        zip(got["losses"], static["losses"]))
         norm_rel = max(abs(a - b) / abs(b) for a, b in
@@ -1530,39 +1578,97 @@ def spmd_train_phase(torch, card_line):
     return stats
 
 
+def _tie(info, card_run, layout, args, shape, wall, card_line):
+    """One tie of the dryrun phase: the fake 1 x 1 cell's counted FLOPs
+    and collectives (kind, count, bytes) against the card's counted step
+    of ``layout``, exactly; its roofline against the measured step."""
+    import collections
+    from repro_torch import analytic
+    from repro_torch.config import get_config
+    fake = collections.Counter((k, b) for k, b, _ in info["collectives"])
+    real = collections.Counter((k, b) for k, b, _ in
+                               card_run["collectives"])
+    print(f"  tie: fake 1 x 1 {args.arch} {layout} float32 B="
+          f"{args.global_batch} S={args.seq_len}: counted FLOPs "
+          f"{info['counted_flops']:.6e} on fake tensors, "
+          f"{card_run['counted_flops']:.6e} on the card; collectives "
+          f"{sum(fake.values())} / {sum(real.values())} "
+          f"({sum(b * n for (_, b), n in fake.items()) / 1e9:.3f} / "
+          f"{sum(b * n for (_, b), n in real.items()) / 1e9:.3f} GB out); "
+          f"the dry-run processes took {wall:.1f} s [{card_line}]")
+    check(info["counted_flops"] == card_run["counted_flops"] > 0,
+          f"{layout}: the dry-run's FLOP count is not the card's")
+    check(fake == real, f"{layout}: the dry-run's collectives are not the "
+                        f"card's: {sorted((fake - real).items())[:4]} / "
+                        f"{sorted((real - fake).items())[:4]}")
+    roof = info["roofline"]
+    t_bound = max(roof["t_compute"], roof["t_memory"], roof["t_collective"])
+    step_s = sorted(card_run["step_s"])[len(card_run["step_s"]) // 2]
+    print(f"  tie roofline ({layout}): analytic step FLOPs "
+          f"{roof['hlo_flops']:.6e} = "
+          f"{roof['hlo_flops'] / info['counted_flops']:.4f} x counted; "
+          f"H100 t_compute {roof['t_compute'] * 1e3:.2f} ms, t_memory "
+          f"{roof['t_memory'] * 1e3:.2f} ms, t_collective "
+          f"{roof['t_collective'] * 1e3:.2f} ms, t_bound "
+          f"{t_bound * 1e3:.2f} ms ({roof['bottleneck']}); measured step "
+          f"{step_s:.3f} s (median of " + ", ".join(
+              f"{t:.3f}" for t in card_run["step_s"]) + f"), t_bound / step "
+          f"{t_bound / step_s:.4f}; "
+          f"analytic HBM bytes {roof['hlo_bytes'] / 1e9:.2f} GB against "
+          f"peak memory {card_run['peak_bytes'] / 1e9:.2f} GB (not gated) "
+          f"[{card_line}]")
+    check(roof["hlo_flops"] == analytic.step_flops(
+        get_config(args.arch, reduced=args.reduced), shape, "full"),
+        f"{layout}: the tie's analytic FLOPs")
+    return {"counted_flops": info["counted_flops"],
+            "card_counted_flops": card_run["counted_flops"],
+            "collectives": sum(fake.values()),
+            "collective_bytes": sum(b * n for (_, b), n in fake.items()),
+            "analytic_flops": roof["hlo_flops"],
+            "t_compute": roof["t_compute"], "t_memory": roof["t_memory"],
+            "t_collective": roof["t_collective"], "t_bound": t_bound,
+            "step_s": step_s, "bound_share": t_bound / step_s,
+            "analytic_bytes": roof["hlo_bytes"],
+            "peak_bytes": card_run["peak_bytes"]}
+
+
 def dryrun_phase(torch, card_line, spmd):
     """``repro_torch.launch.dryrun`` against the card and at production
-    size. The tie: spmd-train's zero1 float32 cell run by the dry-run on
-    a fake 1 x 1 group (a subprocess: the fake group is process-wide)
-    must count exactly the FLOPs and the collectives (kind, count,
-    bytes) that the card's counted zero1 step counted, which makes the
-    dry-run's counts those of the card's program. Then the cell's
-    analytic FLOPs against that count, its H100 roofline against the
-    measured step and its byte model against the measured peak (not
-    gated: the byte model is traffic, not a peak). At the same time,
+    size. The tie: spmd-train's counted float32 cells (zero1, which
+    gathers once a step, and fsdp, which gathers per use), each run by
+    the dry-run on a fake 1 x 1 group (a subprocess each: the fake group
+    is process-wide), must count exactly the FLOPs and the collectives
+    (kind, count, bytes) that the card's counted step of that layout
+    counted, which makes the dry-run's counts those of the card's
+    programs. Then each cell's analytic FLOPs against that count, its
+    H100 roofline against the measured step and its byte model against
+    the measured peak (not gated: the byte model is traffic, not a
+    peak). At the same time,
     three production cells on 256 fake ranks (subprocesses of
     ``python -m repro_torch.launch.dryrun``): each writes an OK artifact
     whose analytic numbers equal a direct call of ``analytic``."""
-    import collections
     from repro_torch import analytic
     from repro_torch.config import SHAPES, ShapeConfig, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as launch_train
     from repro_torch.sharding import MeshView
     args = launch_train.parse_args(TRAIN_ARGS)
-    card_run = spmd[f"{SPMD_LAYOUTS[0]}/float32"]
-    check(SPMD_LAYOUTS[0] == "zero1" and "counted_flops" in card_run,
-          "spmd-train counted no zero1 float32 step")
+    for layout in SPMD_COUNTED:
+        check("counted_flops" in spmd[f"{layout}/float32"],
+              f"spmd-train counted no {layout} float32 step")
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    tie_code = DRYRUN_TIE.format(src=os.path.join(ROOT, "src"),
-                                 opt=args.optimizer, arch=args.arch,
-                                 reduced=args.reduced, seq=args.seq_len,
-                                 batch=args.global_batch)
     t0 = time.monotonic()
-    procs = {"tie": subprocess.Popen(
-        [sys.executable, "-c", tie_code], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    procs = {}
+    for layout in SPMD_COUNTED:
+        tie_code = DRYRUN_TIE.format(src=os.path.join(ROOT, "src"),
+                                     opt=args.optimizer, arch=args.arch,
+                                     reduced=args.reduced, layout=layout,
+                                     seq=args.seq_len,
+                                     batch=args.global_batch)
+        procs[("tie", layout)] = subprocess.Popen(
+            [sys.executable, "-c", tie_code], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     for arch, shape in DRYRUN_CELLS:
         procs[(arch, shape)] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -1584,55 +1690,13 @@ def dryrun_phase(torch, card_line, spmd):
                                     f"{proc.returncode}: "
                                     f"{outs[key][1][-2000:]}")
 
-    # the tie to the card
-    info = json.loads(outs["tie"][0].strip().splitlines()[-1])
-    fake = collections.Counter((k, b) for k, b, _ in info["collectives"])
-    real = collections.Counter((k, b) for k, b, _ in
-                               card_run["collectives"])
-    print(f"  tie: fake 1 x 1 {args.arch} zero1 float32 B="
-          f"{args.global_batch} S={args.seq_len}: counted FLOPs "
-          f"{info['counted_flops']:.6e} on fake tensors, "
-          f"{card_run['counted_flops']:.6e} on the card; collectives "
-          f"{sum(fake.values())} / {sum(real.values())} "
-          f"({sum(b * n for (_, b), n in fake.items()) / 1e9:.3f} / "
-          f"{sum(b * n for (_, b), n in real.items()) / 1e9:.3f} GB out); "
-          f"the four dry-run processes took {wall:.1f} s [{card_line}]")
-    check(info["counted_flops"] == card_run["counted_flops"] > 0,
-          "the dry-run's FLOP count is not the card's")
-    check(fake == real, f"the dry-run's collectives are not the card's: "
-                        f"{sorted((fake - real).items())[:4]} / "
-                        f"{sorted((real - fake).items())[:4]}")
-    roof = info["roofline"]
-    t_bound = max(roof["t_compute"], roof["t_memory"], roof["t_collective"])
-    step_s = sorted(card_run["step_s"])[len(card_run["step_s"]) // 2]
+    out = {"wall_s": wall}
     shape = ShapeConfig("spmd-train", "train", args.seq_len,
                         args.global_batch)
-    print(f"  tie roofline: analytic step FLOPs {roof['hlo_flops']:.6e} = "
-          f"{roof['hlo_flops'] / info['counted_flops']:.4f} x counted; "
-          f"H100 t_compute {roof['t_compute'] * 1e3:.2f} ms, t_memory "
-          f"{roof['t_memory'] * 1e3:.2f} ms, t_collective "
-          f"{roof['t_collective'] * 1e3:.2f} ms, t_bound "
-          f"{t_bound * 1e3:.2f} ms ({roof['bottleneck']}); measured step "
-          f"{step_s:.3f} s (median of " + ", ".join(
-              f"{t:.3f}" for t in card_run["step_s"]) + f"), t_bound / step "
-          f"{t_bound / step_s:.4f}; "
-          f"analytic HBM bytes {roof['hlo_bytes'] / 1e9:.2f} GB against "
-          f"peak memory {card_run['peak_bytes'] / 1e9:.2f} GB (not gated) "
-          f"[{card_line}]")
-    check(roof["hlo_flops"] == analytic.step_flops(
-        get_config(args.arch, reduced=args.reduced), shape, "full"),
-        "the tie's analytic FLOPs")
-    out = {"tie": {"counted_flops": info["counted_flops"],
-                   "card_counted_flops": card_run["counted_flops"],
-                   "collectives": sum(fake.values()),
-                   "analytic_flops": roof["hlo_flops"],
-                   "t_compute": roof["t_compute"],
-                   "t_memory": roof["t_memory"],
-                   "t_collective": roof["t_collective"], "t_bound": t_bound,
-                   "step_s": step_s, "bound_share": t_bound / step_s,
-                   "analytic_bytes": roof["hlo_bytes"],
-                   "peak_bytes": card_run["peak_bytes"]},
-           "wall_s": wall}
+    for layout in SPMD_COUNTED:
+        out[f"tie/{layout}"] = _tie(
+            json.loads(outs[("tie", layout)][0].strip().splitlines()[-1]),
+            spmd[f"{layout}/float32"], layout, args, shape, wall, card_line)
 
     # the production cells
     mesh = MeshView(("data", "model"), (16, 16))
@@ -1662,6 +1726,208 @@ def dryrun_phase(torch, card_line, spmd):
             "counted_flops": art["counted_flops"],
             "faithful": art["faithful"]}
     return out
+
+
+def tp_serve_phase(torch, model, params, card_line):
+    """The tp layout's sharded serving program at full width on a one-rank
+    NCCL mesh: ``make_forward(model, param_shardings=...)`` of the serve
+    phase's starcoder2-3b (bf16, ``attn_impl="cuda"``) on the forward
+    phase's batch (B=4, S=2048), then a prompt through
+    ``make_prefill_step`` and ``TP_SERVE["steps"]`` cells of
+    ``make_serve_step``, both with ``param_shardings`` and
+    ``cache_shardings`` and the rank's block of the cache
+    (``specs.attention_cache_block``), every layer's blocks gathered
+    where used, the heads, ``ff`` and vocabulary computed as the rank's
+    blocks (here the whole of them) with their all-reduces (real NCCL
+    calls of one rank), the argmax over the vocabulary blocks. Gates: the
+    logits against the unsharded kernel path's within the bf16 gate, the
+    greedy tokens equal to the unsharded steps', flash once per layer in
+    the forward and decode attention once per layer a cell (counts set
+    to 0 just before each sharded run and read just after)."""
+    from repro_torch import sharding as S
+    from repro_torch.data import make_batch
+    from repro_torch.launch import specs
+    from repro_torch.models.axes import param_axes
+    from repro_torch.train.step import (make_forward, make_prefill_step,
+                                        make_serve_step)
+    from repro_torch.tree import tree_leaves
+    cfg = model.cfg
+    L = cfg.num_layers
+    B, P, n, max_len = (TP_SERVE[k] for k in ("B", "prompt", "steps",
+                                              "max_len"))
+    batch = make_batch(cfg, *FORWARD_BATCH, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(1, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda")
+
+    def greedy(prefill, serve, weights, cache):
+        cache = prefill(weights, cache, prompt[:, :-1], [P - 1] * B)
+        tok, out, walls = prompt[:, -1:], [], []
+        for _ in range(n):
+            t0 = time.monotonic()
+            tok, cache = serve(weights, cache, tok)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            out.append(tok)
+        return torch.cat(out, 1), sorted(walls)[n // 2]
+
+    with torch.no_grad():
+        want, _ = model.apply(params, batch)
+    want_tok, want_wall = greedy(make_prefill_step(model),
+                                 make_serve_step(model), params,
+                                 model.init_cache(B, max_len))
+    with one_rank_group(torch) as mesh:
+        sh = S.param_shardings(param_axes(cfg), cfg, mesh, layout="tp")
+        blocks = S.shard_tree(params, sh)
+        split = sorted({S.entry_axes(e)[0] for _, s in tree_leaves(sh)
+                        for e in s.spec if e is not None})
+        forward = make_forward(model, param_shardings=sh)
+        forward(blocks, batch)                # NCCL's first call sets up
+        torch.cuda.synchronize()
+        zero_counts()                         # the path's run starts
+        t0 = time.monotonic()
+        got, _ = forward(blocks, batch)
+        torch.cuda.synchronize()
+        fwd_s = time.monotonic() - t0
+        fwd_counts = read_counts()            # and ends
+        err, outside = worst(got, want, allowed(want, "bfloat16"))
+        del got, want
+        whole = model.init_cache(B, max_len, device=specs.META)
+        cache_sh = specs.cache_shardings(whole, mesh, cfg)
+        rows, positions, kv = specs.attention_cache_block(cfg, B, max_len,
+                                                          mesh)
+        kw = dict(param_shardings=sh, cache_shardings=cache_sh)
+        zero_counts()                         # the path's run starts
+        got_tok, got_wall = greedy(make_prefill_step(model, **kw),
+                                   make_serve_step(model, **kw), blocks,
+                                   model.init_cache(rows, positions,
+                                                    kv_heads=kv))
+        serve_counts = read_counts()          # and ends
+        del blocks
+    cells = P - 1 + n
+    print(f"  tp on a 1 x 1 NCCL mesh ({cfg.name} full width, bf16, leaves "
+          f"split over {split}): forward B={FORWARD_BATCH[0]} "
+          f"S={FORWARD_BATCH[1]} {fwd_s * 1e3:.1f} ms, logits against the "
+          f"unsharded kernel path max|diff| {err:.3e} ({outside} outside "
+          f"{TOL_TEXT['bfloat16']}), launches {fwd_counts}; serve B={B}: "
+          f"{P - 1} prefill + {n} greedy cells, launches {serve_counts}, "
+          f"tokens equal to the unsharded steps' "
+          f"{bool(torch.equal(got_tok, want_tok))}; median cell "
+          f"{got_wall * 1e3:.2f} ms sharded, {want_wall * 1e3:.2f} ms "
+          f"unsharded (host wall) [{card_line}]")
+    check(outside == 0 and math.isfinite(err),
+          "the sharded tp forward's logits differ from the unsharded ones")
+    check(torch.equal(got_tok, want_tok),
+          "the sharded tp serve step's tokens differ from the unsharded ones")
+    check(fwd_counts["flash_attention"] == L
+          and fwd_counts["decode_attention"] == 0,
+          f"sharded forward launches {fwd_counts}, expected flash {L}")
+    check(serve_counts["decode_attention"] == L * cells
+          and serve_counts["flash_attention"] == 0,
+          f"sharded serve launches {serve_counts}, expected decode "
+          f"{L * cells}")
+    del batch
+    release(torch)
+    return {"split_axes": split, "forward_ms": fwd_s * 1e3,
+            "logit_max_abs_err": err, "forward_launches": fwd_counts,
+            "serve_cells": cells, "serve_launches": serve_counts,
+            "cell_ms_sharded": got_wall * 1e3,
+            "cell_ms_unsharded": want_wall * 1e3}
+
+
+def seq_split_phase(torch, gen, card_line):
+    """The decode kernel over a cache split on its positions, at
+    zamba2-1.2b's long_500k attention shape (``SEQ_SPLIT``): for each
+    case of ``SEQ_SPLIT_CASES`` and each block count, every block through
+    the kernel with its ``offset`` and ``return_lse``, the partials
+    merged by (m, l) (``ref.merge_partials``, the merge the model runs
+    with all-reduces in place of the sums over blocks), held to the unsplit kernel call and to
+    ``decode_attention_plain`` within the bf16 gate; the unsplit call's
+    (m, l) held to the plain version's. Then device times at the whole
+    cache: the kernel without and with the (m, l) output, its plain
+    version, and SDPA without a mask (the library yardstick), beside the
+    bound. Returns the row for the timing table."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as K
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ref import merge_partials
+    B, H, KV, S, D = (SEQ_SPLIT[k] for k in ("B", "H", "KV", "S", "D"))
+    q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
+    # the model's cache layout (B, S, KV, D), read through transposed views
+    k = torch.randn((B, S, KV, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    max_err, launches, rows = 0.0, 0, []
+    for length, window in SEQ_SPLIT_CASES:
+        lens = torch.tensor([length] * B, dtype=torch.int32, device="cuda")
+        whole, lse = decode_attention(q, kt, vt, lens, window=window,
+                                      return_lse=True)
+        plain, plse = decode_attention_plain(q, kt, vt, lens, window=window,
+                                             return_lse=True)
+        m_err = float((lse[0] - plse[0]).abs().max())
+        l_rel = float(((lse[1] - plse[1]).abs() / plse[1]).max())
+        check(m_err <= 1e-3 and l_rel <= 1e-3,
+              f"the kernel's (m, l) differ from the plain version's: "
+              f"{m_err:.2e}, {l_rel:.2e}")
+        for n in SEQ_SPLIT["blocks"]:
+            blk = S // n
+            n0 = decode_attention.launches
+            parts = [decode_attention(
+                q, kt[:, :, i * blk:(i + 1) * blk],
+                vt[:, :, i * blk:(i + 1) * blk], lens, window=window,
+                offset=i * blk, return_lse=True) for i in range(n)]
+            launches += decode_attention.launches - n0
+            empty = sum(bool((p[1][0] == float("-inf")).all())
+                        for p in parts)
+            got = merge_partials(torch.stack([o for o, _ in parts]),
+                                 torch.stack([ls for _, ls in parts]))
+            torch.cuda.synchronize()
+            e1, out1 = worst(got, whole, allowed(whole, "bfloat16"))
+            e2, out2 = worst(got, plain, allowed(plain, "bfloat16"))
+            max_err = max(max_err, e1, e2)
+            print(f"  length {length} window {window}, {n} blocks of {blk} "
+                  f"({empty} with no visible key): merged against the "
+                  f"unsplit kernel max_abs_err {e1:.3e} ({out1} outside), "
+                  f"against the plain version {e2:.3e} ({out2} outside; "
+                  f"tol {TOL_TEXT['bfloat16']}); unsplit (m, l) against "
+                  f"plain: |dm| {m_err:.2e}, |dl|/l {l_rel:.2e}")
+            check(out1 == 0 and out2 == 0 and math.isfinite(e1 + e2),
+                  f"the merged blocks differ at length {length} window "
+                  f"{window}, {n} blocks")
+            rows.append({"length": length, "window": window, "blocks": n,
+                         "empty_blocks": empty, "vs_unsplit": e1,
+                         "vs_plain": e2})
+            del parts, got
+        del whole, plain, lse, plse
+    release(torch)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    ms = device_ms(torch, lambda i: decode_attention(q, kt, vt, lens), 1,
+                   calls=16, reps=3)
+    ms_lse = device_ms(torch, lambda i: decode_attention(
+        q, kt, vt, lens, return_lse=True), 1, calls=16, reps=3)
+    plain_ms = device_ms(torch, lambda i: decode_attention_plain(
+        q, kt, vt, lens), 1, calls=2, reps=2)
+    lib = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt), 1, calls=16, reps=3)
+    bms, by, nbytes = bound_ms((B, H, KV, S, D, None, 0), "bfloat16", [S])
+    ns = K.split_plan(B, KV, H, S)[0]
+    print(f"  long_500k decode B={B} H={H} KV={KV} S={S} D={D} bf16 "
+          f"({2 * B * S * KV * D * 2 / 1e9:.2f} GB of K and V): kernel "
+          f"{ms * 1e3:.1f} us, with (m, l) {ms_lse * 1e3:.1f} us, plain "
+          f"{plain_ms * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us; bound "
+          f"{bms * 1e3:.1f} us ({by}); kernel at "
+          f"{nbytes / ms / 1e9:.3f} TB/s, {bms / ms:.3f} of the bound; "
+          f"{ns} splits; {launches} block launches [{card_line}]")
+    del q, k, v, kt, vt
+    release(torch)
+    return {"B": B, "H": H, "KV": KV, "S": S, "D": D, "dtype": "bfloat16",
+            "num_splits": ns, "ms": ms, "ms_with_lse": ms_lse,
+            "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes, "bound_share": bms / ms,
+            "max_abs_err": max_err, "checks": rows}
 
 
 def elastic_phase(torch, card_line):
@@ -3036,9 +3302,13 @@ def main() -> int:
         flash_record["launches"] = fwd["kernels"]["flash_attention"][
             "launches"]
         profile_stats["forward"] = fwd
-        del batch
+        del batch, eng, cache, other
+        release(torch)
+
+    with phase("tp-serve"):
+        tp_serve_stats = tp_serve_phase(torch, model, params, card_line)
         # the serving weights go: training needs the card's memory
-        del params, model, eng, cache, other
+        del params, model
         release(torch)
 
     with phase("train"):
@@ -3319,6 +3589,12 @@ def main() -> int:
         del emodel, eparams
         release(torch)
 
+    with phase("decode-seq-split"):
+        seq_split_stats = seq_split_phase(torch, gen, card_line)
+        record["long_500k"] = {k: seq_split_stats[k] for k in (
+            "ms", "ms_with_lse", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")}
+
     with phase("timing"):
         # decode: the serve cell's shape, a long cache, zamba2's decode
         # cell (H = KV = 32, D = 64), moonshot's, qwen2-vl's (G = 7) and
@@ -3411,6 +3687,8 @@ def main() -> int:
                           "flash_timings": flash_timings,
                           "ssd_timing": ssd_timing,
                           "wkv_timings": wkv_timings,
+                          "seq_split": seq_split_stats,
+                          "tp_serve": tp_serve_stats,
                           "serve": serve_stats, "profile": profile_stats,
                           "serve_paged": paged_stats, "fleet": fleet_stats,
                           "train": train_stats, "train_parity": parity,

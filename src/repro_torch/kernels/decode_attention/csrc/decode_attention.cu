@@ -11,6 +11,16 @@
 // valid key. Under GQA, q-head h reads kv-head h / (H / KV); heads are
 // never broadcast in memory.
 //
+// Blocks of one cache: the cache given may be one block of a cache split
+// on its positions (a rank's share of a sequence-sharded cache). Key j
+// then holds position offset + j, and the visible keys in block
+// coordinates are [max(len - window - offset, 0), min(len - offset, S)):
+// clamping len to S alone would take a block that lies wholly below len
+// as ending at S but put the window's lower edge in the wrong frame.
+// With a non-null ``lse`` the kernel also writes each (row, head)'s
+// running max m (natural log) and sum l, from which the blocks' outputs
+// merge; where a row has no visible key, m = -inf and l = 0.
+//
 // Bound: decode is memory-bound. The work is ~4 flops per KV element
 // against 2 bytes (bf16) of it, far below the H100's ~295 flops/byte
 // ridge, so the floor is the valid KV bytes,
@@ -39,7 +49,7 @@
 //    wrapper's split plan gives about one block per SM; with one split
 //    the block writes the output itself and no merge runs, otherwise it
 //    writes a float32 partial (m, l, acc).
-//    ptxas (CUDA 12.9, sm_90a): 221 registers at D = 128, 124 at D = 64,
+//    ptxas (CUDA 12.9, sm_90a): 221 registers at D = 128, 125 at D = 64,
 //    no spills; dynamic shared memory 104,448 and 73,728 bytes.
 //  - float32 (any D) and bfloat16 D = 16 (the CPU tests' widths):
 //    decode_split_kernel on the CUDA cores, each key read by D/4 lanes
@@ -71,12 +81,15 @@ struct Params {
   float* part_m;
   float* part_l;
   float* part_acc;
+  float* lse_m;  // (B, H) m and l of the finished rows, or null
+  float* lse_l;
   int B, H, KV, S, D, G, HC;
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   int window;
   float scale;
   int num_splits;
   int split_size;
+  int offset;  // position of key 0 of this block
 };
 
 __device__ __forceinline__ void load4(const float* p, float (&x)[kEPL]) {
@@ -126,8 +139,8 @@ decode_split_kernel(const Params p) {
   const int grp = lane / LPK;
   const int d0 = (lane % LPK) * kEPL;
 
-  const int len = p.lengths[b];
-  const int hi = min(len, p.S);
+  const int len = p.lengths[b] - p.offset;  // in block coordinates
+  const int hi = min(max(len, 0), p.S);
   const int lo = p.window > 0 ? max(len - p.window, 0) : 0;
   const int start = max(lo, split * p.split_size);
   const int end = min(hi, (split + 1) * p.split_size);
@@ -246,7 +259,10 @@ decode_split_kernel(const Params p) {
   }
 }
 
-template <typename T>
+// LSE: also write each row's (m, l). A separate instantiation, so that the
+// default merge (no (m, l)) is the code it was: the store's possible
+// aliasing of the partials measured +5% at the serve shape.
+template <typename T, bool LSE>
 __global__ void decode_merge_kernel(const Params p) {
   const long long bh = blockIdx.x;  // b * H + h
   const float* pm = p.part_m + bh * p.num_splits;
@@ -266,7 +282,20 @@ __global__ void decode_merge_kernel(const Params p) {
       asum += pa[s * p.D + d] * wt;
     }
     store1(out + d, lsum > 0.f ? asum / lsum : 0.f);
+    if (LSE && d == 0) {
+      p.lse_m[bh] = mx;
+      p.lse_l[bh] = lsum;
+    }
   }
+}
+
+template <typename T>
+cudaError_t launch_merge(const Params& p, cudaStream_t stream) {
+  if (p.lse_m != nullptr)
+    decode_merge_kernel<T, true><<<p.B * p.H, p.D, 0, stream>>>(p);
+  else
+    decode_merge_kernel<T, false><<<p.B * p.H, p.D, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, int LPK, int GM>
@@ -275,8 +304,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   decode_split_kernel<T, LPK, GM><<<grid, kThreads, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<T><<<p.B * p.H, p.D, 0, stream>>>(p);
-  return cudaGetLastError();
+  return launch_merge<T>(p, stream);
 }
 
 template <typename T, int LPK>
@@ -401,8 +429,8 @@ decode_split_kernel_tc(const Params p) {
   const int lr = lane % 8;  // ldmatrix: matrix lane / 8, row lane % 8
   const int lm = lane / 8;
 
-  const int len = p.lengths[b];
-  const int hi = min(len, p.S);
+  const int len = p.lengths[b] - p.offset;  // in block coordinates
+  const int hi = min(max(len, 0), p.S);
   const int lo = p.window > 0 ? max(len - p.window, 0) : 0;
   const int start = max(lo, split * p.split_size);
   const int end = min(hi, (split + 1) * p.split_size);
@@ -588,6 +616,10 @@ decode_split_kernel_tc(const Params p) {
     if (p.num_splits == 1) {
       store1(static_cast<__nv_bfloat16*>(p.out) + bh * D + d,
              lsum > 0.f ? asum / lsum : 0.f);
+      if (d == 0 && p.lse_m != nullptr) {
+        p.lse_m[bh] = mx == -INFINITY ? -INFINITY : mx * kLn2;
+        p.lse_l[bh] = lsum;
+      }
     } else {
       const long long o_ = bh * p.num_splits + split;
       p.part_acc[o_ * D + d] = asum;
@@ -610,8 +642,7 @@ cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   decode_split_kernel_tc<D><<<grid, kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.num_splits == 1) return err;
-  decode_merge_kernel<__nv_bfloat16><<<p.B * p.H, p.D, 0, stream>>>(p);
-  return cudaGetLastError();
+  return launch_merge<__nv_bfloat16>(p, stream);
 }
 
 }  // namespace
@@ -619,6 +650,8 @@ cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // axis of q, k and v must be contiguous; the bf16 D = 64/128 path copies
 // 16-byte chunks (strides a multiple of 8 elements, 16-byte-aligned data).
+// offset: the position of key 0 (0 for a whole cache); lse: null, or
+// (2, B, H) float32 for m then l.
 extern "C" int decode_attention_forward(
     const void* q, const void* k, const void* v, const int* lengths,
     void* out, float* part_m, float* part_l, float* part_acc,
@@ -626,13 +659,15 @@ extern "C" int decode_attention_forward(
     long long q_sb, long long q_sh,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
-    int window, float scale, int num_splits, int split_size, void* stream) {
+    int window, float scale, int num_splits, int split_size, int offset,
+    float* lse, void* stream) {
   if (KV <= 0 || H % KV != 0 || num_splits <= 0 || split_size <= 0)
     return cudaErrorInvalidValue;
   Params p{q, k, v, lengths, out, part_m, part_l, part_acc,
+           lse, lse == nullptr ? nullptr : lse + B * H,
            B, H, KV, S, D, H / KV, 0,
            q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-           window, scale, num_splits, split_size};
+           window, scale, num_splits, split_size, offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && (D == 64 || D == 128)) {
     p.HC = (p.G + kRows - 1) / kRows;  // chunks of 16 q-heads

@@ -42,7 +42,7 @@ def library() -> ctypes.CDLL:
     lib = build.load_library("decode_attention", [SOURCE])
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.decode_attention_forward.argtypes = (
-        [P] * 8 + [I] * 6 + [LL] * 8 + [I, ctypes.c_float, I, I, P])
+        [P] * 8 + [I] * 6 + [LL] * 8 + [I, ctypes.c_float, I, I, I, P, P])
     lib.decode_attention_forward.restype = I
     return lib
 
@@ -124,14 +124,22 @@ def _check(q, k, v, lengths) -> None:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, window: int = 0,
-                     num_splits: Optional[int] = None) -> torch.Tensor:
+                     num_splits: Optional[int] = None, offset: int = 0,
+                     return_lse: bool = False):
     """q: (B, H, D) one token; k/v: (B, KV, S, D), any strides with a
     contiguous last axis (a ``transpose(1, 2)`` view of the model's
     (B, S, KV, D) cache is read in place); lengths: (B,) int32. Returns
-    (B, H, D) in q's dtype. Lengths past S count as S. ``num_splits``
-    overrides the split plan (tests use it to reach the one-split path)."""
+    (B, H, D) in q's dtype. Key j holds position ``offset + j`` (a block
+    of a cache split on its positions; the kernel takes the visible keys
+    in block coordinates from it); lengths past the block count up to
+    its end. ``return_lse`` also returns the (2, B, H) float32 (m, l)
+    partial of ``decode_attention_plain``, which the kernel writes where
+    it finishes a row (one more store per (row, head)).
+    ``num_splits`` overrides the split plan (tests use it to reach the
+    one-split path)."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths, window=window)
+        return decode_attention_plain(q, k, v, lengths, window=window,
+                                      offset=offset, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CUDA or CPU tensors, "
                          f"got {q.device}")
@@ -148,6 +156,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device)
     part_acc = torch.empty((B, H, np_, D), dtype=torch.float32,
                            device=q.device)
+    lse = (torch.empty((2, B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     err = library().decode_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
@@ -156,13 +166,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        int(window), D ** -0.5, ns, split,
+        int(window), D ** -0.5, ns, split, int(offset),
+        None if lse is None else lse[0].data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed with CUDA "
                            f"error {err}")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

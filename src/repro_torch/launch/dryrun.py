@@ -18,15 +18,19 @@ The cells:
 - train: one call of ``make_train_step(model, tcfg, param_shardings=,
   zero1_mask=)`` on the rank's float32 blocks (made from
   ``models/axes.py``'s shapes and the specs, never as whole weights) and
-  the global batch, of which the step takes the rank's rows;
-- prefill: the forward on the rank's rows, the compute copy gathered
-  from the blocks through ``sharding.gather`` as the train step gathers
-  it;
-- decode: one ``make_serve_step`` call on the gathered compute copy
-  (``serve_param_dtype`` casts the blocks), the cache and tokens of the
-  rank's rows when the batch splits over the data ranks, else of the
-  whole batch on every rank (long_500k's B = 1; the reference replicates
-  such tokens too).
+  the global batch, of which the step takes the rank's rows; under
+  ``tp`` and ``fsdp`` the step gathers per use and ``tp`` computes
+  tensor-parallel;
+- prefill: ``make_forward(model, param_shardings=)`` on the rank's rows,
+  the same per-use program without a gradient;
+- decode: one ``make_serve_step(model, param_shardings=,
+  cache_shardings=)`` call on the rank's blocks (``serve_param_dtype``
+  casts them) and the rank's block of the cache
+  (``specs.attention_cache_block``: its rows when the batch splits over
+  the data ranks, else its block of positions of the whole batch,
+  long_500k's B = 1, whose tokens every rank holds, as the reference
+  replicates them; its KV heads under tp), the decode attention merging
+  the data ranks' partials over a sequence-split cache.
 
 Every model runs the plain PyTorch paths (``attn_impl``, ``ssm_impl``
 and ``rwkv_impl`` all ``"torch"``), as the reference's dry-run lowers its
@@ -73,17 +77,17 @@ from repro_torch.models.axes import param_axes, param_shapes
 from repro_torch.models.builder import build_model
 from repro_torch.roofline import (Collective, build_report, model_flops,
                                   record_collectives)
-from repro_torch.train.step import (init_state, make_serve_step,
-                                    make_train_step)
+from repro_torch.train.step import (init_state, make_forward,
+                                    make_serve_step, make_train_step)
 from repro_torch.tree import tree_leaves, tree_map
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun_torch")
-GATHERS_WHOLE = ("tp and fsdp gather the whole compute copy once a step; "
-                 "the reference computes tp's model dims sharded and "
-                 "gathers fsdp per use (ROADMAP 7.5)")
-CACHE_WHOLE = ("the sequence-sharded cache is held whole on each rank; "
-               "cross-rank decode attention is ROADMAP 7.4b")
+RECURRENT_REPLICATED = (
+    "the Mamba-2 and RWKV-6 layers gather their weights whole and compute "
+    "replicated over model under tp, and hold their recurrent state whole; "
+    "the reference splits ssm_inner, heads_flat and ff over model "
+    "(ROADMAP 7.5b)")
 PLAIN_IMPLS = dict(attn_impl="torch", ssm_impl="torch", rwkv_impl="torch")
 
 
@@ -153,9 +157,23 @@ def _blocks(cfg: ModelConfig, shardings, mesh: S.Mesh, dtype: torch.dtype):
         param_shapes(cfg), shardings)
 
 
-def _gathered(blocks, shardings, mesh: S.Mesh):
-    return tree_map(lambda x, s: S.gather(x, s.spec, mesh), blocks,
-                    shardings)
+def _check_cache(cache, global_specs, cache_sh, mesh: S.Mesh,
+                 layout: str) -> None:
+    """The rank's attention cache leaves are the blocks ``cache_sh``
+    gives of the whole cache (under ``tp``; the other layouts hold every
+    KV head)."""
+    whole = dict(tree_leaves(global_specs))
+    spec_of = dict(tree_leaves(cache_sh))
+    for path, leaf in tree_leaves(cache):
+        if path.split("/")[-1] not in ("k", "v", "xk", "xv"):
+            continue
+        spec = spec_of[path]
+        if layout != "tp":
+            spec = spec[:3] + (None, None)
+        want = _local_shape(whole[path].shape, spec, mesh)
+        if tuple(leaf.shape) != want:
+            raise ValueError(f"cache leaf {path}: {tuple(leaf.shape)} is "
+                             f"not the block {want} of spec {spec}")
 
 
 def _zeros(spec: specs.TensorSpec) -> torch.Tensor:
@@ -175,8 +193,8 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
     layout = tcfg.layout
     axes = param_axes(cfg)
     why = []
-    if layout in ("tp", "fsdp"):
-        why.append(GATHERS_WHOLE)
+    if layout in ("tp", "moe_serve") and cfg.family in ("hybrid", "ssm"):
+        why.append(RECURRENT_REPLICATED)
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.models import rwkv
@@ -201,37 +219,30 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
             rows = S.local_batch({k: _zeros(v) for k, v in
                                   specs.train_batch_specs(cfg, shape).items()},
                                  mesh, layout)
-            with torch.no_grad(), record_collectives() as colls, counter, \
-                    S.use_mesh(mesh, layout):
-                model.apply(_gathered(blocks, shardings, mesh), rows,
-                            remat=False)
+            forward = make_forward(model, param_shardings=shardings,
+                                   layout=layout)
+            with record_collectives() as colls, counter:
+                forward(blocks, rows)
         else:
             shardings = S.param_shardings(axes, cfg, mesh, fsdp=serve_fsdp,
                                           layout=layout)
-            if any(S.spec_axes(s.spec) for _, s in tree_leaves(shardings)) \
-                    and GATHERS_WHOLE not in why:
-                why.append(GATHERS_WHOLE)
             dtype = (getattr(torch, serve_param_dtype) if serve_param_dtype
                      else torch.float32)
             blocks = _blocks(cfg, shardings, mesh, dtype)
-            B = shape.global_batch
-            dsz = S.data_size(mesh)
-            rows = B // dsz if B % dsz == 0 else B
             enc_len = (modality.encdec_split(cfg, shape.seq_len)[0]
                        if cfg.family == "encdec" else 0)
-            cache_sh = specs.cache_shardings(
-                specs.cache_specs(model, cfg, shape), mesh, cfg)
-            # an attention cache sharded on its sequence axis
-            if any(path.split("/")[-1] in ("k", "v", "xk", "xv")
-                   and len(spec) == 5 and spec[2] is not None
-                   for path, spec in tree_leaves(cache_sh)):
-                why.append(CACHE_WHOLE)
-            cache = model.init_cache(rows, shape.seq_len, enc_len=enc_len)
+            whole = specs.cache_specs(model, cfg, shape)
+            cache_sh = specs.cache_shardings(whole, mesh, cfg)
+            rows, positions, kv = specs.attention_cache_block(
+                cfg, shape.global_batch, shape.seq_len, mesh, layout)
+            cache = model.init_cache(rows, positions, enc_len=enc_len,
+                                     kv_heads=kv)
+            _check_cache(cache, whole, cache_sh, mesh, layout)
             tokens = torch.zeros((rows, 1), dtype=torch.int64)
-            serve = make_serve_step(model)
-            with torch.no_grad(), record_collectives() as colls, counter, \
-                    S.use_mesh(mesh, layout):
-                serve(_gathered(blocks, shardings, mesh), cache, tokens)
+            serve = make_serve_step(model, param_shardings=shardings,
+                                    cache_shardings=cache_sh, layout=layout)
+            with record_collectives() as colls, counter:
+                serve(blocks, cache, tokens)
     return CellCounts(float(counter.get_total_flops()), colls), why
 
 

@@ -47,6 +47,7 @@ port leaf (shape)                      rule
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -55,7 +56,8 @@ from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import make_batch
 from repro_torch.models import modality
 from repro_torch.models.builder import Model
-from repro_torch.sharding import MeshView, Spec, data_axes, data_size
+from repro_torch.sharding import (MeshView, Spec, data_axes, data_size,
+                                  entry_axes)
 from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Any
@@ -170,6 +172,27 @@ def cache_spec(path: str, shape: Tuple[int, ...], mesh: MeshView) -> Spec:
             entries[1] = d
         return tuple(entries)
     return tuple(entries)
+
+
+def attention_cache_block(cfg: ModelConfig, batch: int, max_len: int,
+                          mesh: MeshView, layout: str = "tp"
+                          ) -> Tuple[int, int, int]:
+    """(rows, positions, KV heads) of a rank's block of the attention
+    cache leaves (``kv``, ``kv_dense``, ``shared_kv``, encdec's ``kv``,
+    ``xk`` and ``xv``) under :func:`cache_spec`'s rule: what
+    ``Model.init_cache(rows, positions, kv_heads=)`` builds for the rank.
+    The KV heads split over ``model`` only under ``tp``, the layout whose
+    attention runs on the rank's heads; the others compute every head
+    and hold them all. The recurrent leaves (Mamba-2 ``state`` and
+    ``conv``, RWKV-6 ``wkv`` and ``tok_*``) are held whole: their layers
+    compute replicated over ``model`` (ROADMAP.md 7.5b)."""
+    shape = (1, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    spec = cache_spec("kv/k", shape, mesh)
+    if layout != "tp":
+        spec = spec[:3] + (None, None)
+    local = [n // math.prod(mesh.shape[a] for a in entry_axes(e))
+             for n, e in zip(shape, spec)]
+    return local[1], local[2], local[3]
 
 
 def cache_shardings(cache: Tree, mesh: MeshView, cfg: ModelConfig) -> Tree:

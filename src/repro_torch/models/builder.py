@@ -48,10 +48,12 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int,
                    device: Optional[torch.device] = None, *,
-                   enc_len: int = 0) -> Tree:
-        """The decode cache; ``enc_len`` sizes encdec's cross caches."""
+                   enc_len: int = 0, kv_heads: Optional[int] = None) -> Tree:
+        """The decode cache; ``enc_len`` sizes encdec's cross caches;
+        ``kv_heads`` makes a tensor-parallel rank's block of it."""
         return transformer.init_decode_cache(
-            self.cfg, batch, max_len, device or self.device, enc_len=enc_len)
+            self.cfg, batch, max_len, device or self.device, enc_len=enc_len,
+            kv_heads=kv_heads)
 
     def decode(self, params: Tree, cache: Tree,
                batch: Dict[str, torch.Tensor],
@@ -63,11 +65,12 @@ class Model:
     def init_paged_cache(self, batch: int, max_len: int, *, page_size: int,
                          num_pages: int,
                          device: Optional[torch.device] = None,
-                         enc_len: int = 0) -> Tree:
+                         enc_len: int = 0,
+                         kv_heads: Optional[int] = None) -> Tree:
         return transformer.init_paged_decode_cache(
             self.cfg, batch, max_len, page_size=page_size,
             num_pages=num_pages, device=device or self.device,
-            enc_len=enc_len)
+            enc_len=enc_len, kv_heads=kv_heads)
 
     def decode_paged(self, params: Tree, cache: Tree,
                      batch: Dict[str, torch.Tensor], advance=None

@@ -26,7 +26,17 @@ Where a route does not apply (no mesh, another layout, E not divisible)
 the row-local path runs, as in the reference. ``moe_routes`` counts the
 route each call took. The expert-parallel routes take the expert weights
 either whole (they slice the rank's experts) or as the rank's
-``(E/M, ...)`` block; the row-local path needs them whole.
+``(E/M, ...)`` block.
+
+The weights may be ``sharding.Sharded`` leaves, gathered here where they
+are used: the router whole; the experts as the rank's block where the
+spec splits them over ``model``, on every route (the row-local path's
+too: under ``tp`` it runs the rank's experts, or its block of ``ff``
+where E does not divide the model axis, and one all-reduce over
+``model`` sums the partial outputs, at S = 1 as well); and the dense
+MLPs (moonshot's shared experts, arctic's dense branch, every dense
+layer's MLP) tensor-parallel under ``tp``: ``wi``/``wg`` column-parallel
+on ``ff``, ``wo`` row-parallel, one all-reduce after it.
 """
 from __future__ import annotations
 
@@ -66,12 +76,14 @@ def init_mlp(gen, d_model: int, d_ff: int, gated: bool, *, dtype,
 
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    h = x @ p["wi"].to(dt)
+    xi = sharding.copy_to(x, *sharding.split_group(p["wi"]))
+    h = xi @ sharding.take(p["wi"]).to(dt)
     if "wg" in p:
-        h = F.silu(x @ p["wg"].to(dt)) * h
+        h = F.silu(xi @ sharding.take(p["wg"]).to(dt)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"].to(dt)
+    return sharding.reduce_from(h @ sharding.take(p["wo"]).to(dt),
+                                *sharding.split_group(p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +181,20 @@ def _aux(logits: torch.Tensor, probs: torch.Tensor, E: int) -> torch.Tensor:
     return E * torch.mean(sel.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
 
 
+def _aux_over(logits: torch.Tensor, probs: torch.Tensor, E: int, mesh,
+              axes: Tuple[str, ...]) -> torch.Tensor:
+    """:func:`_aux` over every token of the ranks of ``axes`` (which hold
+    distinct rows): one differentiable all-reduce of each expert's argmax
+    count and probability sum, as the reference's aux over its global
+    batch is under GSPMD."""
+    sel = (logits.argmax(-1)[..., None]
+           == torch.arange(E, device=logits.device)).float()
+    stats = torch.cat([sel.sum(dim=(0, 1)), probs.sum(dim=(0, 1))])
+    stats = sharding.all_reduce(stats, mesh, axes)
+    n = logits.shape[0] * logits.shape[1] * mesh.group_size(axes)
+    return E * torch.mean((stats[:E] / n) * (stats[E:] / n))
+
+
 def _dense_branches(p: Dict[str, torch.Tensor], x: torch.Tensor,
                     out: torch.Tensor) -> torch.Tensor:
     if "shared" in p:
@@ -179,27 +205,57 @@ def _dense_branches(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def _rows(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-          capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+          capacity: int, aux_axes: Tuple[str, ...] = (), *,
+          e_index: int = 0, group=None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed experts of x (B, S, D) by row-local dispatch at
-    ``capacity``: (output without the dense branches, aux)."""
+    ``capacity``: (output without the dense branches, aux); the aux over
+    the rows of the current mesh's ``aux_axes`` too when given.
+
+    ``p["router"]`` is whole. The experts ``wi``/``wg``/``wo`` are all E
+    experts whole, or block ``e_index`` of e_loc experts, or every
+    expert's block of ``ff``. With ``group`` (mesh, axes), the ranks of
+    ``axes`` hold the same x and each computes the partial output of its
+    experts (or of its ``ff`` block), summed over them where it leaves
+    (``sharding.reduce_from``); their gradients of the dispatched tokens
+    and of the combine weights are partial and summed where they enter
+    (``sharding.copy_to``). Routing and dispatch run on every rank
+    alike."""
     B, S, D = x.shape
     E, k, C = cfg.num_experts, cfg.top_k, capacity
     dt = x.dtype
-    if p["wi"].shape[0] != E:
+    e_loc = p["wi"].shape[0]
+    if group is None and e_loc != E:
         raise ValueError(f"the row-local MoE path needs all {E} experts' "
-                         f"weights, got a block of {p['wi'].shape[0]}: "
-                         f"expert-sharded weights run under moe_impl "
-                         f"'ep' or 'a2a' in a mesh")
+                         f"weights or a group to sum a block of them over, "
+                         f"got a block of {e_loc}")
     logits = (x @ p["router"].to(dt)).float()                  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
-    buf, slot, keep, flat_w = _route(x, probs, cfg, C)
-    y = _experts(p["wi"], p["wg"], p["wo"], buf.view(B, E, C, D))
-    y = y.reshape(B, E * C, D)
+    xe = x if group is None else sharding.copy_to(x, *group)
+    buf, slot, keep, flat_w = _route(xe, probs, cfg, C)
+    if group is not None:
+        flat_w = sharding.copy_to(flat_w, *group)
+    if e_loc != E:
+        # this rank's experts' slots of the (E*C, D) buffer
+        e0 = e_index * e_loc
+        buf = buf[:, e0 * C:(e0 + e_loc) * C]
+        slot = slot - e0 * C
+        keep = keep & (slot >= 0) & (slot < e_loc * C)
+        slot = slot.clamp(0, e_loc * C - 1)
+    y = _experts(p["wi"], p["wg"], p["wo"], buf.reshape(B, e_loc, C, D))
+    y = y.reshape(B, e_loc * C, D)
 
     # gather back to token order; weight and sum over the k assignments
     y_ent = y.gather(1, slot[..., None].expand(B, S * k, D))   # (B, S*k, D)
     y_ent = y_ent * (keep * flat_w).to(dt)[..., None]
-    return y_ent.view(B, S, k, D).sum(dim=2), _aux(logits, probs, E)
+    out = y_ent.view(B, S, k, D).sum(dim=2)
+    if group is not None:
+        out = sharding.reduce_from(out, *group)       # ONE combine
+    if aux_axes:
+        aux = _aux_over(logits, probs, E, sharding.current_mesh(), aux_axes)
+    else:
+        aux = _aux(logits, probs, E)
+    return out, aux
 
 
 def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
@@ -221,8 +277,34 @@ def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
         if out is not None:
             return out, aux
     moe_routes["gspmd"] += 1
-    out, aux = _rows(p, x, cfg, moe_capacity(x.shape[1], cfg))
+    w = {n: sharding.take(p[n]) for n in ("wi", "wg", "wo")}
+    w["router"] = sharding.whole(p["router"])
+    # under tp the experts' spec splits ``experts`` over ``model`` (or
+    # ``ff``, where E does not divide it): run on the rank's block
+    split, axes = {}, sharding.split_axes(p["wi"])
+    if axes:
+        if any(sharding.split_axes(p[n]) != axes for n in ("wg", "wo")):
+            raise ValueError("the experts' wi, wg and wo split over "
+                             "different axes")
+        split = dict(group=(p["wi"].mesh, axes), e_index=(
+            sharding.split_index(p["wi"])
+            if w["wi"].shape[0] != cfg.num_experts else 0))
+    out, aux = _rows(w, x, cfg, moe_capacity(x.shape[1], cfg),
+                     _sharded_rows(p["router"]), **split)
     return _dense_branches(p, x, out), aux
+
+
+def _sharded_rows(router) -> Tuple[str, ...]:
+    """The data axes of a sharded step (its leaves come as
+    ``sharding.Sharded``), over which the row-local aux is taken, when a
+    gradient is wanted (a forward without one, as a decode step, reads
+    no aux); ``()`` otherwise."""
+    mesh = sharding.current_mesh()
+    if (not isinstance(router, sharding.Sharded) or mesh is None
+            or not torch.is_grad_enabled()):
+        return ()
+    axes = sharding.data_axes(mesh, sharding.current_layout())
+    return axes if mesh.group_size(axes) > 1 else ()
 
 
 # ---------------------------------------------------------------------------
@@ -239,39 +321,6 @@ def _local_experts(w: torch.Tensor, E: int, e_loc: int, index: int
         return w[index * e_loc:(index + 1) * e_loc]
     raise ValueError(f"expert weight of {w.shape[0]} experts is neither all "
                      f"{E} nor this rank's {e_loc}")
-
-
-def _ep_local(x: torch.Tensor, router: torch.Tensor, wi: torch.Tensor,
-              wg: torch.Tensor, wo: torch.Tensor, *, cfg: ModelConfig,
-              capacity: int, e_loc: int, e_index: int, mesh
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One rank's MoE body: x (B, S, D) the rank's rows, the same on every
-    rank of its ``model`` group; wi/wg/wo the rank's (e_loc, ...)
-    experts, ``e_index`` its block. Routing and dispatch are computed on
-    every rank alike; each rank runs its own experts and combines their
-    outputs into a partial (B, S, D), and one all-reduce over ``model``
-    sums the partials."""
-    B, S, D = x.shape
-    E, k, C = cfg.num_experts, cfg.top_k, capacity
-    dt = x.dtype
-
-    logits = (x @ router.to(dt)).float()
-    probs = torch.softmax(logits, dim=-1)
-    buf, slot, keep, flat_w = _route(x, probs, cfg, C)
-    # this rank's experts' slots of the (E*C, D) buffer
-    e0 = e_index * e_loc
-    ebuf = buf[:, e0 * C:(e0 + e_loc) * C].reshape(B, e_loc, C, D)
-    y = _experts(wi, wg, wo, ebuf).reshape(B, e_loc * C, D)
-
-    # combine: the assignments that landed in this rank's experts
-    local_slot = slot - e0 * C
-    local_keep = keep & (local_slot >= 0) & (local_slot < e_loc * C)
-    y_ent = y.gather(1, local_slot.clamp(0, e_loc * C - 1)[..., None]
-                     .expand(B, S * k, D))
-    y_ent = y_ent * (local_keep * flat_w).to(dt)[..., None]
-    out = y_ent.view(B, S, k, D).sum(dim=2)
-    out = sharding.all_reduce(out, mesh, ("model",))       # ONE combine
-    return out, _aux(logits, probs, E)
 
 
 def _apply_moe_ep(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -291,11 +340,12 @@ def _apply_moe_ep(p: Dict[str, torch.Tensor], x: torch.Tensor,
         return None, zero
     E, e_loc = cfg.num_experts, cfg.num_experts // M
     index = mesh.index(("model",))
-    w = [_local_experts(p[n], E, e_loc, index) for n in ("wi", "wg", "wo")]
+    w = [_local_experts(sharding.take(p[n], ("model",)), E, e_loc, index)
+         for n in ("wi", "wg", "wo")]
     moe_routes["ep"] += 1
-    out, aux = _ep_local(x, p["router"], *w, cfg=cfg,
-                         capacity=moe_capacity(x.shape[1], cfg), e_loc=e_loc,
-                         e_index=index, mesh=mesh)
+    w = dict(zip(("wi", "wg", "wo"), w), router=sharding.whole(p["router"]))
+    out, aux = _rows(w, x, cfg, moe_capacity(x.shape[1], cfg),
+                     e_index=index, group=(mesh, ("model",)))
     dax = sharding.data_axes(mesh)
     aux = sharding.all_reduce(aux, mesh, dax) / mesh.group_size(dax)
     return _dense_branches(p, x, out), aux
@@ -367,10 +417,11 @@ def _apply_moe_a2a(p: Dict[str, torch.Tensor], x: torch.Tensor,
         return None, zero
     e_loc = E // M
     index = mesh.index(ep_axes)
-    w = [_local_experts(p[n], E, e_loc, index) for n in ("wi", "wg", "wo")]
+    w = [_local_experts(sharding.take(p[n], ep_axes), E, e_loc, index)
+         for n in ("wi", "wg", "wo")]
     moe_routes["a2a"] += 1
     B, S, _ = x.shape
-    out, aux = _a2a_local(x, p["router"], *w, cfg=cfg,
+    out, aux = _a2a_local(x, sharding.whole(p["router"]), *w, cfg=cfg,
                           cap=a2a_capacity(B * S, cfg), e_loc=e_loc, M=M,
                           ep_axes=ep_axes, mesh=mesh)
     aux = sharding.all_reduce(aux, mesh, all_axes) / mesh.size

@@ -10,6 +10,12 @@ once in ``cfg.dtype``, which makes every cast at use a no-op and gives
 the same values without the per-use copy. RMS gammas stay float32 either
 way, because the reference reads them in float32 (``rms_norm`` upcasts
 ``gamma``, never downcasts it).
+
+The weights may be ``sharding.Sharded`` leaves, gathered where they are
+used. Under the ``tp`` layout the embedding is vocabulary-parallel (the
+rank's rows of ``tok``: ids outside them give 0, then one all-reduce) and
+the unembedding column-parallel (the rank's vocabulary block of the
+logits).
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
+
+from repro_torch import sharding as SH
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,6 +60,7 @@ def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """fp32 RMS norm scaled by ``1 + gamma`` (gamma stored zero-centred)."""
+    gamma = SH.take(gamma)
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
@@ -126,12 +135,36 @@ def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Gather, then cast to ``dtype`` (default: the stored dtype): the
     reference's cast-then-gather gives the same numbers, and this way only
-    the gathered rows are copied."""
-    x = params["tok"][tokens]
-    return x if dtype is None else x.to(dtype)
+    the gathered rows are copied. A ``tok`` split on its vocabulary gives
+    each rank its rows' embeddings and zeros elsewhere, summed over the
+    ranks."""
+    leaf = params["tok"]
+    tok = SH.take(leaf)
+    if not SH.split_axes(leaf):
+        x = tok[tokens]
+        return x if dtype is None else x.to(dtype)
+    rows = tok.shape[0]
+    local = tokens - SH.split_index(leaf) * rows
+    inside = (local >= 0) & (local < rows)
+    x = tok[local.clamp(0, rows - 1)]
+    if dtype is not None:
+        x = x.to(dtype)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return SH.reduce_from(x, *SH.split_group(leaf))
+
+
+def unembed_leaf(params: Dict[str, torch.Tensor], tie: bool):
+    """The leaf the logits are read from: ``tok`` (transposed) when tied,
+    else ``out``; its split decides the logits' vocabulary block."""
+    return params["tok"] if tie else params["out"]
 
 
 def unembed(params: Dict[str, torch.Tensor], x: torch.Tensor,
             tie: bool) -> torch.Tensor:
-    w = params["tok"].T if tie else params["out"]
-    return x @ w.to(x.dtype)
+    """x (..., d) -> logits (..., V), or the rank's vocabulary block of
+    them when the weight is split on its vocabulary."""
+    leaf = unembed_leaf(params, tie)
+    w = SH.take(leaf)
+    w = w.T if tie else w
+    return SH.copy_to(x, *SH.split_group(leaf)) @ w.to(x.dtype)

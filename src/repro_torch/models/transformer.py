@@ -25,6 +25,18 @@ the port keeps the stacked layout (every layer leaf has a leading
 ``layers`` axis, zamba2's blocks ``(n_blocks, cadence)``, as in the
 reference pytree) and loops over it in Python.
 
+Sharded parameters: the sharded train and serve steps hand these
+functions the rank's blocks as ``sharding.Sharded`` leaves. A layer's
+blocks are taken by ``tree_unbind`` and gathered where the layer uses
+them, inside the function that ``_run`` recomputes under remat, so the
+backward gathers them again and a layer's full copy lives only while it
+runs; the embedding, final norm and unembedding are gathered where they
+are used too. The attention, MLP and vocabulary code computes on the
+rank's model blocks under ``tp`` (``attention.py``, ``ffn.py``,
+``layers.py``); the Mamba-2 and RWKV-6 layers gather their leaves whole
+and compute replicated over ``model``. With plain tensors (no mesh)
+nothing is gathered.
+
 Public entry points (used by the builder, train/serve steps and engine):
     init_params(cfg, generator, device, dtype)       -> params tree
     forward(params, cfg, batch, remat)               -> (logits, aux)
@@ -46,6 +58,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as SH
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
@@ -226,6 +239,7 @@ def _attn_block(lp: Tree, x: torch.Tensor, cfg: ModelConfig, *, window: int,
     h = L.rms_norm(x, lp["ln1"]["gamma"], cfg.norm_eps)
     q, k, v = A.project_qkv(lp["attn"], h, cfg, positions=positions,
                             mrope_positions=mrope_positions)
+    k, v = A.local_kv(lp["attn"], cfg, k, v)
     att = A.attend(q, k, v, cfg, causal=causal, window=window)
     return x + A.out_proj(lp["attn"], att)
 
@@ -266,22 +280,35 @@ def _cross_attend(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
     visible: full attention, or, in the decode cell, the decode
     attention of one token with ``last`` (B,) = S_enc - 1 as the current
     index of every row."""
+    p = lp["xattn"]
     hn = L.rms_norm(x, lp["lnx"]["gamma"], cfg.norm_eps)
-    q = A.project(hn, lp["xattn"]["wq"])
+    q = A.project(SH.copy_to(hn, *SH.split_group(p["wq"])), p["wq"])
     if last is None:
+        k, v = A.local_kv(p, cfg, k, v)
         att = A.attend(q, k, v, cfg, causal=False)
     else:
-        att = A.attend_decode(q, k, v, last, impl=cfg.attn_impl)
-    return x + A.out_proj(lp["xattn"], att)
+        lo, hi = A.kv_range(p, cfg)
+        att = A.attend_decode(q, k[:, :, lo:hi], v[:, :, lo:hi], last,
+                              impl=cfg.attn_impl)
+    return x + A.out_proj(p, att)
 
 
 def _cross_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig,
                  enc: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     x = _attn_block(lp, x, cfg, window=0, positions=positions)
-    k = A.project(enc, lp["xattn"]["wk"])
-    v = A.project(enc, lp["xattn"]["wv"])
+    k, v = _cross_kv(lp, enc)
     x = _cross_attend(lp, x, cfg, k, v)
     return _mlp_block(lp, x, cfg)
+
+
+def _cross_kv(lp: Tree, enc: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's K and V of the encoder output (the rank's KV
+    heads when ``wk``/``wv`` are split; ``enc`` is replicated over the
+    model ranks and enters their sharded compute)."""
+    p = lp["xattn"]
+    e = SH.copy_to(enc, *SH.split_group(p["wk"]))
+    return A.project(e, p["wk"]), A.project(e, p["wv"])
 
 
 def _encode(params: Tree, cfg: ModelConfig, frame_embeds: torch.Tensor,
@@ -341,6 +368,7 @@ def _shared_block(sp: Tree, x: torch.Tensor, cfg: ModelConfig,
 
 def _mamba_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig
                  ) -> torch.Tensor:
+    lp = SH.whole_tree(lp)          # replicated over model (ROADMAP 7.5b)
     hn = L.rms_norm(x, lp["ln"]["gamma"], cfg.norm_eps)
     return x + M.apply_mamba2(lp["mamba"], hn, cfg)
 
@@ -370,6 +398,7 @@ def _hybrid_trunk(params: Tree, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _rwkv_layer(h: torch.Tensor, lp: Tree, cfg: ModelConfig) -> torch.Tensor:
+    lp = SH.whole_tree(lp)          # replicated over model (ROADMAP 7.5b)
     zeros_tok = torch.zeros((h.shape[0], 1, cfg.d_model), dtype=h.dtype,
                             device=h.device)
     hn = L.rms_norm(h, lp["ln1"]["gamma"], cfg.norm_eps)
@@ -432,7 +461,8 @@ def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device, enc_len: int = 0) -> Tree:
+                      device, enc_len: int = 0,
+                      kv_heads: Optional[int] = None) -> Tree:
     """Cache tree for ``decode_step``, laid out as the reference's: every
     leaf's leading axes are the stacked layer axes, then the batch axis,
     plus the per-row write index ``pos`` (B,) int32.
@@ -448,15 +478,21 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     - vlm: as dense;
     - encdec: the decoder's self-attention ``kv`` (dec_layers, B, Smax,
       KV, Dh) and the cross-attention caches ``xk``, ``xv`` (dec_layers,
-      B, enc_len, KV, Dh), zero until ``encode_for_decode`` fills them."""
+      B, enc_len, KV, Dh), zero until ``encode_for_decode`` fills them.
+
+    A rank's block of a sharded cache: ``batch`` its rows, ``max_len`` its
+    positions (the cache split on its sequence), ``kv_heads`` its KV
+    heads (default all), as ``launch.specs.cache_shardings`` splits the
+    attention leaves."""
     check_family(cfg)
     dt = L.torch_dtype(cfg.dtype)
+    KV = cfg.num_kv_heads if kv_heads is None else kv_heads
 
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def kv(n):
-        shape = (n, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        shape = (n, batch, max_len, KV, cfg.head_dim)
         return {"k": zeros(shape), "v": zeros(shape)}
 
     def stacked(tree, lead):
@@ -466,8 +502,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.family in ("dense", "vlm"):
         return {"kv": kv(cfg.num_layers), "pos": pos}
     if cfg.family == "encdec":
-        cross = (cfg.dec_layers, batch, enc_len, cfg.num_kv_heads,
-                 cfg.head_dim)
+        cross = (cfg.dec_layers, batch, enc_len, KV, cfg.head_dim)
         return {"kv": kv(cfg.dec_layers), "xk": zeros(cross),
                 "xv": zeros(cross), "pos": pos}
     if cfg.family == "moe":
@@ -507,8 +542,10 @@ def _decode_attn_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                        ) -> torch.Tensor:
     h = L.rms_norm(x, lp["ln1"]["gamma"], cfg.norm_eps)
     q, k, v = A.project_qkv(lp["attn"], h, cfg, positions=pos[:, None])
-    A.update_cache(kc, vc, k, v, pos, advance)
-    att = A.attend_decode(q, kc, vc, pos, window=window, impl=cfg.attn_impl)
+    A.update_cache(kc, vc, k, v, pos, advance, offset=A.seq_offset(kc))
+    lo, hi = A.kv_range(lp["attn"], cfg)
+    att = A.attend_decode(q, kc[:, :, lo:hi], vc[:, :, lo:hi], pos,
+                          window=window, impl=cfg.attn_impl, seq=True)
     return x + A.out_proj(lp["attn"], att)
 
 
@@ -525,6 +562,7 @@ def _commit(leaf: torch.Tensor, new: torch.Tensor,
 def _decode_mamba_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                         state: torch.Tensor, conv: torch.Tensor,
                         advance: Optional[torch.Tensor]) -> torch.Tensor:
+    lp = SH.whole_tree(lp)
     hn = L.rms_norm(x, lp["ln"]["gamma"], cfg.norm_eps)
     out, new = M.decode_mamba2(lp["mamba"], hn,
                                {"state": state, "conv": conv}, cfg)
@@ -536,6 +574,7 @@ def _decode_mamba_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
 def _decode_rwkv_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                        st: Tree, advance: Optional[torch.Tensor]
                        ) -> torch.Tensor:
+    lp = SH.whole_tree(lp)
     hn = L.rms_norm(x, lp["ln1"]["gamma"], cfg.norm_eps)
     out, new = R.decode_tmix(lp["tmix"], hn, cfg, st)
     x = x + out
@@ -642,12 +681,14 @@ def encode_for_decode(params: Tree, cfg: ModelConfig,
     reference does. The other leaves are the same tensors."""
     enc = _encode(params, cfg, frame_embeds, remat=False)
     layers = tree_unbind(params["layers"])
-    shape = (len(layers), *enc.shape[:2], cfg.num_kv_heads, cfg.head_dim)
-    xk = enc.new_empty(shape)
-    xv = enc.new_empty(shape)
+    xk = xv = None
     for i, lp in enumerate(layers):
-        xk[i] = A.project(enc, lp["xattn"]["wk"])
-        xv[i] = A.project(enc, lp["xattn"]["wv"])
+        k, v = _cross_kv(lp, enc)       # (B, S_enc, the rank's KV, Dh)
+        if xk is None:
+            xk = k.new_empty((len(layers), *k.shape))
+            xv = v.new_empty((len(layers), *v.shape))
+        xk[i] = k
+        xv[i] = v
     return {**cache, "xk": xk, "xv": xv}
 
 
@@ -657,7 +698,8 @@ def encode_for_decode(params: Tree, cfg: ModelConfig,
 
 def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                             page_size: int, num_pages: int, device,
-                            enc_len: int = 0) -> Tree:
+                            enc_len: int = 0,
+                            kv_heads: Optional[int] = None) -> Tree:
     """Cache tree for ``decode_step_paged``: every length-bearing KV leaf
     becomes a physical page pool ``(layers, num_pages, page_size, KV, Dh)``
     shared by all rows, indexed through a per-row ``page_table`` leaf
@@ -670,7 +712,9 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     - ssm: the dense cache plus the table (attention-free, so no pool;
       the table keeps the engine's page accounting uniform);
     - vlm: as dense;
-    - encdec: none (NotImplementedError, as in the reference)."""
+    - encdec: none (NotImplementedError, as in the reference).
+    ``kv_heads``: the rank's KV heads under tensor parallelism (default
+    all)."""
     check_family(cfg)
     if cfg.family == "encdec":
         raise NotImplementedError(
@@ -680,7 +724,9 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     pages_per_row = -(-max_len // page_size)
 
     def kv_pool(n):
-        shape = (n, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+        shape = (n, num_pages, page_size,
+                 cfg.num_kv_heads if kv_heads is None else kv_heads,
+                 cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -697,7 +743,7 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if nd:
             c["kv_dense"] = kv_pool(nd)
         return c
-    c = init_decode_cache(cfg, batch, max_len, device)
+    c = init_decode_cache(cfg, batch, max_len, device, kv_heads=kv_heads)
     if cfg.family == "hybrid":
         c["shared_kv"] = kv_pool(num_shared_invocations(cfg))
     c["page_table"] = table
@@ -725,7 +771,9 @@ def _decode_attn_layer_paged(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
     h = L.rms_norm(x, lp["ln1"]["gamma"], cfg.norm_eps)
     q, k, v = A.project_qkv(lp["attn"], h, cfg, positions=pos[:, None])
     A.write_pages(kp, vp, k, v, slots)
-    att = A.attend_decode_paged(q, kp, vp, table, pos, window=window,
+    lo, hi = A.kv_range(lp["attn"], cfg)
+    att = A.attend_decode_paged(q, kp[..., lo:hi, :], vp[..., lo:hi, :],
+                                table, pos, window=window,
                                 impl=cfg.attn_impl)
     return x + A.out_proj(lp["attn"], att)
 

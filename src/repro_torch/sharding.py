@@ -337,9 +337,10 @@ def act_spec(axes: Sequence[Optional[str]], mesh: MeshView,
 def shard_act(x: torch.Tensor, axes: Sequence[Optional[str]]
               ) -> torch.Tensor:
     """No-op. The reference pins an activation's sharding for GSPMD; here
-    each process already computes on its own rows only, and weights are
-    gathered before use rather than computed on sharded, so there is no
-    activation layout to pin."""
+    each process computes on its own rows, and the model-sharded compute
+    (``Sharded`` leaves, :func:`copy_to`, :func:`reduce_from`) places the
+    collectives those pins imply explicitly, so there is nothing left to
+    pin."""
     return x
 
 
@@ -377,8 +378,8 @@ def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group) -> None:
         _record("reduce-scatter", out, group)
 
 
-def _all_reduce(x: torch.Tensor, group) -> None:
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    dist.all_reduce(x, op=op, group=group)
     if recorders:
         _record("all-reduce", x, group)
 
@@ -392,11 +393,15 @@ def _all_to_all(out: torch.Tensor, x: torch.Tensor, group) -> None:
 class _Gather(torch.autograd.Function):
     """All-gather along ``dim`` in group-rank order; the backward
     reduce-scatters the gradient (a sum over the group) at its own
-    dtype."""
+    dtype. With ``index`` (this rank's place in the group) the backward
+    instead keeps the rank's own block of the gradient and moves
+    nothing: for a group whose ranks hold the same rows and compute the
+    same gradient (the model ranks of the ``tp`` layout, when a leaf
+    stored sharded over them is used whole)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, n):
-        ctx.dim, ctx.group, ctx.n = dim, group, n
+    def forward(ctx, x, dim, group, n, index=None):
+        ctx.dim, ctx.group, ctx.n, ctx.index = dim, group, n, index
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((n * src.shape[0],) + src.shape[1:])
         _all_gather(out, src, group)
@@ -404,10 +409,14 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.index is not None:
+            step = grad.shape[ctx.dim] // ctx.n
+            return (grad.narrow(ctx.dim, ctx.index * step, step),
+                    None, None, None, None)
         src = grad.movedim(ctx.dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // ctx.n,) + src.shape[1:])
         _reduce_scatter(out, src, ctx.group)
-        return out.movedim(0, ctx.dim), None, None, None
+        return out.movedim(0, ctx.dim), None, None, None, None
 
 
 class _AllReduce(torch.autograd.Function):
@@ -426,6 +435,40 @@ class _AllReduce(torch.autograd.Function):
         out = grad.contiguous().clone()
         _all_reduce(out, ctx.group)
         return out, None
+
+
+class _TpIn(torch.autograd.Function):
+    """Identity forward, sum over the group backward: where a tensor that
+    every rank of a tensor-parallel group holds alike enters that group's
+    sharded compute, each rank's gradient of it is a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.contiguous().clone()
+        _all_reduce(out, ctx.group)
+        return out, None
+
+
+class _TpOut(torch.autograd.Function):
+    """Sum over the group forward, identity backward: after a row-parallel
+    product, each rank's partial output summed into the value every rank
+    of the group then holds alike (and each rank's gradient of the sum is
+    already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        _all_reduce(out, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -459,11 +502,16 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
     return _AllToAll.apply(x, mesh.group(axes))
 
 
-def all_reduce_(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
-                ) -> torch.Tensor:
-    """Sum of ``x`` over the ranks of ``axes``, in place and outside
-    autograd; returns ``x``."""
-    _all_reduce(x, mesh.group(axes))
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def all_reduce_(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
+                op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over the ranks of ``axes`` by ``op`` (``"sum"``,
+    ``"max"`` or ``"min"``), in place and outside autograd; returns
+    ``x``."""
+    _all_reduce(x, mesh.group(axes), _OPS[op])
     return x
 
 
@@ -496,6 +544,142 @@ def gather(local: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
         if axes:
             x = _Gather.apply(x, dim, mesh.group(axes), mesh.group_size(axes))
     return x
+
+
+# ---------------------------------------------------------------------------
+# Per-use gathers and tensor-parallel compute
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharded:
+    """A parameter leaf as the sharded steps hand it to the model: this
+    rank's ``block`` of a leaf with ``spec`` on ``mesh``, gathered where
+    the model uses it (:func:`take`), inside the layer that uses it, so
+    that under remat the backward gathers it again and the full copy
+    lives only while the layer runs.
+
+    ``tp_axes`` are the mesh axes over which ranks hold the same rows
+    (``model`` under the ``tp`` layout, none under ``fsdp``): a dim sharded
+    over them may stay sharded in the compute (tensor parallelism), and a
+    gather over them backs off to the rank's own block of the gradient,
+    since those ranks compute the same one. ``unbind(0)`` takes the
+    layers of a layer-stacked leaf (its first entry must be ``None``), so
+    ``tree.tree_unbind`` works on trees of these."""
+    block: torch.Tensor
+    spec: Spec
+    mesh: Mesh
+    tp_axes: Tuple[str, ...] = ()
+
+    def unbind(self, dim: int = 0):
+        if dim != 0 or self.spec[0] is not None:
+            raise ValueError(f"unbind a layer-stacked leaf on its unsharded "
+                             f"dim 0 (spec {self.spec})")
+        return tuple(Sharded(b, self.spec[1:], self.mesh, self.tp_axes)
+                     for b in self.block.unbind(0))
+
+
+def wrap_tree(blocks, shardings, layout: str = "tp"):
+    """The rank's blocks as :class:`Sharded` leaves: the tree a sharded
+    step hands to ``Model.apply`` or ``Model.decode``."""
+    def one(x, s: NamedSharding):
+        dax = data_axes(s.mesh, layout)
+        tp = tuple(a for a in s.mesh.axis_names if a not in dax)
+        return Sharded(x, s.spec, s.mesh, tp)
+    return tree_map(one, blocks, shardings)
+
+
+def _kept(x: Sharded, keep: Optional[Sequence[str]]) -> Spec:
+    """The entries of ``x.spec`` that stay sharded under ``keep`` (default
+    its ``tp_axes``): those whose axes all lie in it."""
+    keep = x.tp_axes if keep is None else tuple(keep)
+    return tuple(e if entry_axes(e) and set(entry_axes(e)) <= set(keep)
+                 else None for e in x.spec)
+
+
+def take(x, keep: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """The compute form of a parameter leaf: a plain tensor as it is; a
+    :class:`Sharded` leaf gathered over every spec entry whose axes are
+    not all in ``keep`` (default: its ``tp_axes``), differentiably. What
+    stays sharded is the rank's block over ``keep``; ``keep=()`` gives
+    the whole leaf."""
+    if not isinstance(x, Sharded):
+        return x
+    out, mesh = x.block, x.mesh
+    for dim, (entry, kept) in enumerate(zip(x.spec, _kept(x, keep))):
+        axes = entry_axes(entry)
+        if not axes or kept is not None:
+            continue
+        index = mesh.index(axes) if set(axes) <= set(x.tp_axes) else None
+        out = _Gather.apply(out, dim, mesh.group(axes),
+                            mesh.group_size(axes), index)
+    return out
+
+
+def whole(x) -> torch.Tensor:
+    """The whole leaf (``take(x, keep=())``)."""
+    return take(x, keep=())
+
+
+def whole_tree(tree):
+    """Every leaf of ``tree`` whole (:func:`whole`)."""
+    return tree_map(whole, tree)
+
+
+def split_axes(x) -> Tuple[str, ...]:
+    """The mesh axes the compute form of ``x`` (:func:`take`, default
+    ``keep``) stays sharded over: ``()`` for a plain tensor, or for a
+    leaf used whole."""
+    if not isinstance(x, Sharded):
+        return ()
+    return spec_axes(_kept(x, None))
+
+
+def split_index(x) -> int:
+    """This rank's block index over :func:`split_axes` of ``x``."""
+    axes = split_axes(x)
+    return x.mesh.index(axes) if axes else 0
+
+
+def split_group(x) -> Tuple[Optional[Mesh], Tuple[str, ...]]:
+    """(mesh, :func:`split_axes`) of ``x``: the group over which its
+    compute form is split, ``(None, ())`` when it is not."""
+    axes = split_axes(x)
+    return (x.mesh if axes else None), axes
+
+
+def copy_to(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
+            ) -> torch.Tensor:
+    """``x``, held alike by the ranks of ``axes``, entering their sharded
+    compute: identity forward; the backward sums the ranks' partial
+    gradients. ``x`` itself when ``axes`` is empty (e.g. a
+    :func:`split_group` of a leaf that is not split)."""
+    return _TpIn.apply(x, mesh.group(axes)) if axes else x
+
+
+def reduce_from(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
+                ) -> torch.Tensor:
+    """The sum over the ranks of ``axes`` of their partial ``x`` (after a
+    row-parallel product); the backward passes the gradient through.
+    ``x`` itself when ``axes`` is empty."""
+    return _TpOut.apply(x, mesh.group(axes)) if axes else x
+
+
+# the decode cache's sequence axis: the mesh and the axes its positions
+# are split over, set by a sharded serve step for its decode cells
+def kv_seq() -> Optional[Tuple[Mesh, Tuple[str, ...]]]:
+    return getattr(_ctx, "kv_seq", None)
+
+
+@contextlib.contextmanager
+def use_kv_seq(mesh: Optional[Mesh], axes: Sequence[str] = ()):
+    """Within the block, the decode cells read a KV cache whose positions
+    are split over ``axes`` in contiguous blocks (``None``: whole)."""
+    prev = kv_seq()
+    _ctx.kv_seq = (mesh, tuple(axes)) if mesh is not None and axes else None
+    try:
+        yield
+    finally:
+        _ctx.kv_seq = prev
 
 
 def local_batch(batch: Dict[str, torch.Tensor], mesh: Mesh,

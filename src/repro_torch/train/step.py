@@ -22,10 +22,13 @@ update. ``param_shardings`` (from ``repro_torch.sharding``) runs the step
 on a mesh of processes, one per device: ``state.params`` and the
 optimizer moments are each rank's float32 blocks (ZeRO: the moments are
 sharded as the params are), the batch is the global one, of which each
-rank takes its rows.
+rank takes its rows. The serve and prefill steps take ``param_shardings``
+too, and run the decode cell on the rank's blocks and the rank's block
+of the cache (``cache_shardings``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch import sharding
 from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.models import layers as L
 from repro_torch.models.builder import Model
 from repro_torch.models.modality import vlm_split
 from repro_torch.optim import make_optimizer, make_schedule
@@ -81,18 +85,76 @@ def _token_weights(cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  weights: Optional[torch.Tensor] = None,
+                  like=None) -> torch.Tensor:
     """Stable cross-entropy in float32. It gathers the gold logit where
     the reference multiplies by a one-hot: the same function, without a
-    (B, S, V) one-hot."""
+    (B, S, V) one-hot. ``like``: the unembedding's leaf; when it is split
+    on its vocabulary (``sharding.split_axes``), ``logits`` are the rank's
+    vocabulary block and the loss is vocabulary-parallel
+    (:class:`_VocabParallelNLL`)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None])[..., 0]
-    nll = lse - gold
+    if sharding.split_axes(like):
+        nll = _VocabParallelNLL.apply(logits, labels, like)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        nll = lse - gold
     if weights is None:
         return nll.mean()
     w = weights.expand_as(nll)
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] from each rank's vocabulary block
+    (float32): the row maximum by a max all-reduce, then one sum
+    all-reduce of the sum of exp and of the gold logit, which the rank
+    that holds the label contributes (the others 0). The full logits are
+    never gathered. The backward is the unsharded loss's to the bit on
+    one rank: exp(logits - lse) x g, then -g at the label, as autograd
+    of ``logsumexp`` and of the gold ``gather`` sums them."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, like):
+        mesh, axes = like.mesh, sharding.split_axes(like)
+        n = logits.shape[-1]
+        top = sharding.all_reduce_(logits.amax(dim=-1), mesh, axes, "max")
+        local = labels - sharding.split_index(like) * n
+        inside = (local >= 0) & (local < n)
+        at = local.clamp(0, n - 1)[..., None]
+        gold = logits.gather(-1, at)[..., 0]
+        gold = torch.where(inside, gold, torch.zeros_like(gold))
+        sums = torch.stack([torch.exp(logits - top[..., None]).sum(-1),
+                            gold])
+        sharding.all_reduce_(sums, mesh, axes, "sum")
+        lse = torch.log(sums[0]) + top
+        ctx.save_for_backward(logits, lse, at, inside)
+        return lse - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, at, inside = ctx.saved_tensors
+        grad = torch.exp(logits - lse[..., None]) * g[..., None]
+        grad.scatter_add_(-1, at, torch.where(inside, -g, 0.0)[..., None])
+        return grad, None, None
+
+
+def greedy(logits: torch.Tensor, like=None) -> torch.Tensor:
+    """argmax over the last axis, the first of tied maxima, as
+    ``jnp.argmax`` takes it. With ``like`` split on its vocabulary,
+    ``logits`` are the rank's block: a max all-reduce of the blocks'
+    maxima, then a min all-reduce of the global indices that reach it."""
+    axes = sharding.split_axes(like)
+    idx = torch.argmax(logits, dim=-1)
+    if not axes:
+        return idx
+    mesh = like.mesh
+    val = logits.gather(-1, idx[..., None])[..., 0].float()
+    top = sharding.all_reduce_(val.clone(), mesh, axes, "max")
+    idx = idx + sharding.split_index(like) * logits.shape[-1]
+    cand = torch.where(val == top, idx, torch.full_like(idx, 2 ** 62))
+    return sharding.all_reduce_(cand, mesh, axes, "min")
 
 
 def loss_fn(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
@@ -106,7 +168,8 @@ def loss_fn(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
         loss = cross_entropy(logits, batch["labels"])
     else:
         w = _token_weights(cfg, batch, logits.shape[1])
-        loss = cross_entropy(logits, batch["labels"], w)
+        loss = cross_entropy(logits, batch["labels"], w, like=L.unembed_leaf(
+            params["embed"], cfg.tie_embeddings))
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux": aux}
 
@@ -162,28 +225,38 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
     ``lr`` (a float).
 
     ``param_shardings`` (a tree of ``sharding.NamedSharding`` matching the
-    params; every rank calls the step, under ``use_mesh`` when the model
-    reads the mesh) runs the step on the mesh's ranks:
+    params; every rank calls the step, under ``use_mesh``) runs the step
+    on the mesh's ranks. The compute copy (bf16 under
+    ``grad_dtype="bfloat16"``, cast from each rank's blocks) is gathered
+    through the differentiable gathers of ``sharding.take``, whose
+    backward reduce-scatters the gradients at their own dtype:
 
-    - the compute copy (bf16 under ``grad_dtype="bfloat16"``, cast from
-      each rank's blocks) is gathered through the differentiable
-      ``sharding.gather`` once per step, and the forward and backward use
-      it; the backward of the gather reduce-scatters the gradients at
-      their own dtype;
-    - layout ``"zero1"``: ``zero1_mask`` (a bool tree, optional) leaves
-      out leaves to keep expert-parallel: an expert weight stack keeps
-      its ``experts`` entry (the MoE routes read the rank's experts) and
-      is gathered over its other entries; any other leaf is gathered
-      whole, as the reference's shard_map in_specs ask for it. Layouts
-      ``"fsdp"`` and ``"tp"`` gather every leaf whole too (the reference
-      gathers fsdp's per use and computes tp's model dims sharded;
-      ROADMAP.md Queue 1 item 7);
+    - layouts ``"tp"`` and ``"fsdp"`` (the transformer families): per use.
+      The model gets the blocks as ``sharding.Sharded`` leaves and gathers
+      each layer's where the layer runs, again in the backward under
+      remat. Under ``tp`` the gathers are over the data axes and the
+      model-split dims stay split: attention heads, ``ff`` and the
+      vocabulary compute tensor-parallel (each model rank holds the same
+      rows); the Mamba-2 and RWKV-6 layers gather theirs whole and compute
+      replicated (ROADMAP.md 7.5b). Under ``fsdp`` every gather is over
+      every axis;
+    - layout ``"zero1"`` (and resnet under any layout): once a step.
+      ``zero1_mask`` (a bool tree, optional) leaves out leaves to keep
+      expert-parallel: an expert weight stack keeps its ``experts`` entry
+      (the MoE routes read the rank's experts) and is gathered over its
+      other entries; any other leaf is gathered whole, as the reference's
+      shard_map in_specs ask for it;
     - each rank's loss, a mean over its rows, is weighted by 1 / (number
-      of ranks), so that the sum over ranks is the global mean (ranks that
-      hold the same rows, the model ranks under tp, split it); every
-      gradient is then summed over all ranks: the reduce-scatter covers
-      the axes a leaf was gathered over, an all-reduce the axes its spec
-      does not name (a replicated leaf is all-reduced over every axis);
+      of data ranks, ``sharding.data_size`` of the layout), so that the
+      sum over the data ranks is the global mean. The ranks of a tp group
+      hold the same rows and the same loss; the tensor-parallel operators
+      (``sharding.copy_to``, ``reduce_from``) make each one's gradient of a
+      leaf it holds whole the whole gradient, and of a split leaf its
+      block's, so nothing is summed over ``model``: a gather over
+      ``model`` of a leaf used whole keeps the rank's block of its
+      gradient. Over the data axes every gradient is summed: the
+      reduce-scatter covers those a leaf was gathered over, an all-reduce
+      the others;
     - ``grad_norm`` and clipping use the norm over all blocks, each
       replicated block counted once; the reported ``loss`` and ``aux``
       are the global means.
@@ -231,40 +304,45 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
     return train_step
 
 
+PER_USE_LAYOUTS = ("tp", "fsdp")
+
+
 def _sharded(model: Model, tcfg: TrainConfig, shardings: Tree, zero1_mask,
              compute_dt: Optional[torch.dtype]):
     """(grads_of, norm_of) of the sharded step (``make_train_step``)."""
     mesh = next(tree_leaves(shardings))[1].mesh
     everything = tuple(mesh.axis_names)
+    layout = tcfg.layout
+    dax = sharding.data_axes(mesh, layout)
+    n_data = sharding.data_size(mesh, layout)
 
-    def gather_spec(s: sharding.NamedSharding, whole: bool):
-        if whole:
-            return s.spec
+    def keep(s: sharding.NamedSharding, whole: bool) -> Tuple[str, ...]:
         own = [a for a in s.axes if a not in ("layers", "blocks")]
-        if own[:1] != ["experts"]:
-            return s.spec
-        return tuple(None if a == "experts" else e
-                     for a, e in zip(s.axes, s.spec))
+        if whole or own[:1] != ["experts"]:
+            return ()
+        return sharding.entry_axes(s.spec[s.axes.index("experts")])
 
-    if tcfg.layout == "zero1" and zero1_mask is not None:
-        specs = tree_map(gather_spec, shardings, zero1_mask)
+    if layout in PER_USE_LAYOUTS and model.cfg.family != "resnet":
+        keeps = None                            # the model gathers per use
+    elif layout == "zero1" and zero1_mask is not None:
+        keeps = tree_map(keep, shardings, zero1_mask)
     else:
-        specs = tree_map(lambda s: s.spec, shardings)
-    # the axes each leaf's gradient is all-reduced over after the
+        keeps = tree_map(lambda s: (), shardings)
+    # the data axes each leaf's gradient is all-reduced over after the
     # reduce-scatter: those its spec does not name
     rest = tree_map(lambda s: tuple(
-        a for a in everything if a not in sharding.spec_axes(s.spec)),
-        shardings)
+        a for a in dax if a not in sharding.spec_axes(s.spec)), shardings)
 
     def grads_of(params: Tree, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
-        rows = sharding.local_batch(batch, mesh, tcfg.layout)
+        rows = sharding.local_batch(batch, mesh, layout)
 
         def loss(blocks: Tree):
-            full = tree_map(lambda x, spec: sharding.gather(x, spec, mesh),
-                            blocks, specs)
-            total, metrics = loss_fn(model, full, rows, tcfg)
-            return total / mesh.size, metrics
+            tree = sharding.wrap_tree(blocks, shardings, layout)
+            if keeps is not None:               # once a step
+                tree = tree_map(sharding.take, tree, keeps)
+            total, metrics = loss_fn(model, tree, rows, tcfg)
+            return total / n_data, metrics
 
         grads, metrics = value_and_grad(loss, params, compute_dt)
         with torch.no_grad():
@@ -287,29 +365,102 @@ def _sharded(model: Model, tcfg: TrainConfig, shardings: Tree, zero1_mask,
     return grads_of, norm_of
 
 
+class _Cell:
+    """What a sharded serve, prefill or forward step adds around the
+    model: the blocks as ``sharding.Sharded`` leaves, the mesh and layout
+    in use, and the cache's sequence split (from ``cache_shardings``, a
+    tree of specs like ``launch.specs.cache_shardings``'s: the axes of
+    the sequence entry of its attention leaves, if any). Without
+    ``param_shardings`` it adds nothing."""
+
+    def __init__(self, param_shardings=None, cache_shardings=None,
+                 layout: str = "tp"):
+        self.shardings, self.layout = param_shardings, layout
+        self.mesh = (None if param_shardings is None
+                     else next(tree_leaves(param_shardings))[1].mesh)
+        self.seq_axes: Tuple[str, ...] = ()
+        for path, spec in tree_leaves(cache_shardings or {}):
+            if (path.split("/")[-1] in ("k", "v") and len(spec) == 5
+                    and spec[2] is not None):
+                self.seq_axes = sharding.entry_axes(spec[2])
+        if self.seq_axes and self.mesh is None:
+            raise ValueError("a cache split on its sequence needs "
+                             "param_shardings (the mesh)")
+
+    def wrap(self, params: Tree) -> Tree:
+        if self.shardings is None:
+            return params
+        return sharding.wrap_tree(params, self.shardings, self.layout)
+
+    @contextlib.contextmanager
+    def scope(self):
+        if self.mesh is None:
+            yield
+            return
+        with sharding.use_mesh(self.mesh, self.layout), \
+                sharding.use_kv_seq(self.mesh, self.seq_axes):
+            yield
+
+
+def make_forward(model: Model, *, param_shardings=None, layout: str = "tp"
+                 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """``forward(params, batch) -> (logits, aux)`` without a gradient
+    (prefill, evaluation). With ``param_shardings`` ``params`` are the
+    rank's blocks and ``batch`` the rank's rows; the forward gathers per
+    use and computes tensor-parallel under ``tp``, as the train step's
+    does, and the logits are the rank's vocabulary block when the
+    unembedding is split on it."""
+    cell = _Cell(param_shardings, layout=layout)
+
+    @torch.no_grad()
+    def forward(params: Tree, batch: Dict[str, torch.Tensor]):
+        with cell.scope():
+            return model.apply(cell.wrap(params), batch, remat=False)
+
+    return forward
+
+
 # ---------------------------------------------------------------------------
 # serve_step / prefill_step (decode)
 # ---------------------------------------------------------------------------
 
 
-def make_serve_step(model: Model, *, sample: str = "greedy"
+def make_serve_step(model: Model, *, sample: str = "greedy",
+                    param_shardings=None, cache_shardings=None,
+                    layout: str = "tp"
                     ) -> Callable[..., Tuple[torch.Tensor, Tree]]:
-    """One-token decode step: (params, cache, tokens (B,1)) -> (next, cache)."""
+    """One-token decode step: (params, cache, tokens (B,1)) -> (next, cache).
+
+    With ``param_shardings`` every rank calls it with its blocks, its
+    block of the cache (its rows, or, when ``cache_shardings`` split the
+    cache's sequence, its positions of every row; its KV heads under
+    ``tp`` where the spec splits them: ``Model.init_cache(...,
+    kv_heads=)``) and the tokens of its rows; the decode cell gathers per
+    use, computes tensor-parallel, attends over a sequence-split cache by
+    merging the ranks' partials, and the argmax reads the vocabulary
+    blocks of every model rank (:func:`greedy`)."""
     if sample != "greedy":
         raise ValueError(sample)
+    cell = _Cell(param_shardings, cache_shardings, layout)
+    tie = model.cfg.tie_embeddings
 
     @torch.no_grad()
     def serve_step(params: Tree, cache: Tree, tokens: torch.Tensor
                    ) -> Tuple[torch.Tensor, Tree]:
-        logits, cache = model.decode(params, cache, {"tokens": tokens})
-        # argmax keeps the first of tied maxima, as jnp.argmax does
-        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+        with cell.scope():
+            tree = cell.wrap(params)
+            logits, cache = model.decode(tree, cache, {"tokens": tokens})
+            # argmax keeps the first of tied maxima, as jnp.argmax does
+            nxt = greedy(logits[:, -1, :], L.unembed_leaf(tree["embed"],
+                                                          tie))
         return nxt[:, None], cache
 
     return serve_step
 
 
-def make_prefill_step(model: Model) -> Callable[..., Tree]:
+def make_prefill_step(model: Model, *, param_shardings=None,
+                      cache_shardings=None, layout: str = "tp"
+                      ) -> Callable[..., Tree]:
     """Blocked prefill: ``(params, cache, tokens (B, T), n_valid (B,)) ->
     cache``, ingesting up to T prompt tokens per row.
 
@@ -325,19 +476,23 @@ def make_prefill_step(model: Model) -> Callable[..., Tree]:
     per token.
     ``n_valid`` is a host array: the loop stops after the longest row
     (every row is frozen past it), and a token every row consumes needs
-    no mask.
+    no mask. ``param_shardings``, ``cache_shardings`` and ``layout`` as
+    for :func:`make_serve_step`.
     """
+    cell = _Cell(param_shardings, cache_shardings, layout)
 
     @torch.no_grad()
     def prefill_step(params: Tree, cache: Tree, tokens: torch.Tensor,
                      n_valid: Sequence[int]) -> Tree:
         n_valid = np.asarray(n_valid)
-        for t in range(int(n_valid.max(initial=0))):
-            adv = t < n_valid                   # rows consuming this token
-            mask = None if adv.all() else torch.as_tensor(
-                adv, device=tokens.device)
-            _, cache = model.decode(params, cache,
-                                    {"tokens": tokens[:, t:t + 1]}, mask)
+        with cell.scope():
+            tree = cell.wrap(params)
+            for t in range(int(n_valid.max(initial=0))):
+                adv = t < n_valid               # rows consuming this token
+                mask = None if adv.all() else torch.as_tensor(
+                    adv, device=tokens.device)
+                _, cache = model.decode(tree, cache,
+                                        {"tokens": tokens[:, t:t + 1]}, mask)
         return cache
 
     return prefill_step

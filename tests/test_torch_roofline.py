@@ -12,9 +12,12 @@ closed form:
 
 - an all-gather per sharded dim of each leaf's spec, its output the leaf
   gathered so far at the compute dtype (the whole leaf, for a leaf
-  sharded on one dim), over the group of that entry's axes;
-- a reduce-scatter for each all-gather, its output that gather's input
-  at the gradient dtype;
+  sharded on one dim), over the group of that entry's axes; under
+  fsdp, which gathers per use, one such gather of each layer's block of
+  a layer-stacked leaf in the forward and one in the remat recompute,
+  of each other leaf one at its use;
+- a reduce-scatter for each all-gather (per use: for each forward
+  gather), its output that gather's input at the gradient dtype;
 - an all-reduce of the block's gradient over the axes its spec does not
   name, one of the (loss, aux) metrics (8 bytes) and one of the squared
   norm (4 bytes) over every rank;
@@ -264,15 +267,22 @@ def step_closed_form(cfg, layout, grad_dtype, sizes):
     everything = math.prod(sizes.values())
     for path, shape in tree_leaves(param_shapes(cfg)):
         spec = sh[path].spec
-        cur = list(shape)
-        for dim, entry in enumerate(spec):
+        # (gathered shape, its spec, reduce-scatters, all-gathers)
+        if layout == "fsdp" and path.startswith("layers/"):
+            L = shape[0]
+            uses = (shape[1:], spec[1:], L, 2 * L)
+        else:
+            uses = (shape, spec, 1, 1)
+        gshape, gspec, n_rs, n_ag = uses
+        cur = list(gshape)
+        for dim, entry in enumerate(gspec):
             cur[dim] //= math.prod(sizes[a] for a in S.entry_axes(entry))
-        for dim, entry in enumerate(spec):
+        for dim, entry in enumerate(gspec):
             n = math.prod(sizes[a] for a in S.entry_axes(entry))
             if S.entry_axes(entry):
-                want.append(("reduce-scatter", math.prod(cur) * esize, n))
+                want += [("reduce-scatter", math.prod(cur) * esize, n)] * n_rs
                 cur[dim] *= n
-                want.append(("all-gather", math.prod(cur) * esize, n))
+                want += [("all-gather", math.prod(cur) * esize, n)] * n_ag
         rest = [a for a in sizes if a not in S.spec_axes(spec)]
         if rest:
             block = math.prod(shape) // math.prod(
@@ -292,7 +302,19 @@ def test_recorder_sees_every_collective_of_a_sharded_step(gloo, world,
     for r in gloo[world]:
         assert collections.Counter(r[layout]) == want
     kinds = collections.Counter(k for k, _, _ in gloo[world][0][layout])
-    assert kinds["all-gather"] == kinds["reduce-scatter"] > 0
+    # every gather of the forward has its reduce-scatter; fsdp's remat
+    # recompute gathers each layer's block of a stacked leaf once more
+    cfg = _cfg("starcoder2-3b")
+    mesh = S.MeshView(tuple(_sizes(world)), tuple(_sizes(world).values()))
+    sh = S.param_shardings(param_axes(cfg), cfg, mesh, layout=layout)
+    again = 0
+    if layout == "fsdp":
+        again = sum(cfg.num_layers * sum(bool(S.entry_axes(e))
+                                         for e in s.spec[1:])
+                    for path, s in tree_leaves(sh)
+                    if path.startswith("layers/"))
+    assert kinds["all-gather"] == kinds["reduce-scatter"] + again
+    assert kinds["reduce-scatter"] > 0
 
 
 @pytest.mark.parametrize("world", MESHES)
