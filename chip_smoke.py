@@ -55,14 +55,21 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
    zamba2's forward shape, a ragged S, fast decays, head counts that are
    not a multiple of the bf16 kernel's two-head blocks (3, 5), S = 63, 64
    and 65, P = N = 32 and a long (8192-token) slowly decaying sequence,
-   with B and C read as column slices, in bf16 and fp32;
+   with B and C read as column slices, in bf16 and fp32; and a tp rank's
+   head block at train_4k's per-rank shape on the 16 x 16 mesh (B = 16,
+   S = 4096, 4 of the 64 heads, B and C column slices of the rank's
+   384-channel conv output [x, B, C]) against its plain version and the
+   same heads of the 64-head call;
 6. rwkv6-vs-plain: the WKV kernel against its plain version, every shape
    with r, k, v (and o) in bf16 and in fp32: rwkv6's forward shape with
    pathological decays, with a nonzero and a zero initial state, r, k, v
    as views of one fused projection and as the model's contiguous
    tensors; a ragged S; S = 1, 31, 32, 33 around the kernel's 32-token
    blocks; D = 16 and 32; and 8192 slowly decaying tokens (the largest
-   state); outputs and final states (float32);
+   state); outputs and final states (float32); and a tp rank's head
+   block (B = 16, S = 4096, 4 of the 64 heads of the column-parallel r,
+   k, v) against its plain version and the same heads of the 64-head
+   call;
 7. decode-cell: full-width starcoder2 decode steps with the kernel and
    with the plain version on the same cache; logits must agree;
 8. serve: the serve entry point's engine answers 8 requests undisturbed,
@@ -125,7 +132,10 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     gradient norms and parameters within the CPU tests' tolerances, bf16
     updates with a cosine above 0.98; step walls, peak memory and, for
     zero1's and fsdp's float32 runs, the device launches of a profiled
-    step and a counted step (FLOPs, collectives);
+    step and a counted step (FLOPs, collectives); then zamba2-1.2b at full
+    width under tp (float32 gradients; its Mamba-2 heads as the rank's,
+    the gated norm's all-reduce) against its own static step, with the
+    float32 gates;
 14c. dryrun: ``repro_torch.launch.dryrun`` tied to the card: spmd-train's
     zero1 and fsdp float32 cells (full-width starcoder2-3b, global batch
     2 x 1024) run on fake tensors over a fake 1 x 1 process group (a
@@ -187,6 +197,13 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     of max|logit|); a profiled device breakdown;
 20. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
     path being the sequential scan, at the same B=4, S=2048;
+20b. tp-recurrent: phase 12b's sharded programs for both recurrent
+    models (bf16, the kernel paths) on a one-rank NCCL mesh: their
+    Mamba-2 and RWKV-6 layers on the rank's heads, the cache the rank's
+    block (``specs.cache_block``); logits within the bf16 gate of the
+    unsharded kernel path's, tokens equal to the unsharded steps', SSD
+    38 and flash 6 times a zamba2 forward, WKV 32 times an rwkv6 forward,
+    decode attention 6 times a zamba2 cell;
 21. serve-recurrent: each family served at full width as in phase 8
     (undisturbed, then revoke + drain; migrated tokens equal), zamba2's
     decode cell running 6 decode-attention launches, and zamba2 again
@@ -258,7 +275,8 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     encoder and decoder layers;
     the SSD scan at zamba2's forward; WKV at
     rwkv6's forward in fp32 (fused views, nonzero s0) and as the model
-    calls it (bf16 r, k, v and o, zero s0).
+    calls it (bf16 r, k, v and o, zero s0); both at a tp rank's head
+    block (phases 5 and 6, bf16).
 
 Any failure raises and exits non-zero. The last lines are the kernel
 records (JSON), the card's name and power limit, and
@@ -376,6 +394,15 @@ WKV_SHAPES = {
     "d32": (2, 300, 8, 32, True, False, -8.0),
     "slow": (2, 8192, 8, 64, True, False, None),       # U(-8, -6)
 }
+# a tp rank's head block at train_4k's per-rank shape on the 16 x 16
+# mesh: 256 rows over 16 data ranks, S = 4096, the 64 heads over 16 model
+# ranks, of which rank TP_HEADS["rank"] holds 4: zamba2's SSD scan (P = N
+# = 64, B and C column slices of the rank's conv output [x_r, B, C] of
+# 4 x 64 + 2 x 64 = 384 channels) and rwkv6's WKV scan (D = 64, r, k
+# and v of the column-parallel products, zero initial state)
+TP_HEADS = {"B": 16, "S": 4096, "H": 64, "M": 16, "rank": 5}
+TP_SSD_SHAPE = (16, 4096, 4, 64, 64, -0.5)
+TP_WKV_SHAPE = (16, 4096, 4, 64, False, False, -8.0)
 FORWARD_BATCH = (4, 2048)
 TRAIN_ARGS = ["--full", "--arch", "starcoder2-3b", "--steps", "3",
               "--global-batch", "2", "--seq-len", "1024"]
@@ -428,6 +455,11 @@ MOE_SERVE_ARGS = SERVE_ARGS + ["--arch", MOE_ARCH]
 SPMD_RUNS = (("zero1", "float32"), ("zero1", "bfloat16"),
              ("fsdp", "float32"), ("fsdp", "bfloat16"), ("tp", "float32"))
 SPMD_COUNTED = ("zero1", "fsdp")
+# and zamba2-1.2b at full width (38 Mamba-2 layers) under tp against its
+# static step: its heads, the regrouped in_proj and conv, the gated norm's
+# all-reduce (rwkv6-7b's AdamW state, ~120 GB, does not fit the card)
+SPMD_RECURRENT_ARGS = ["--full", "--arch", "zamba2-1.2b", "--steps", "3",
+                       "--global-batch", "2", "--seq-len", "1024"]
 SPMD_STEPS = 3
 PG_DIR = os.path.join(ROOT, "build", "chip_smoke_pg")
 MOE_EP_DECODE = {"B": 4, "max_len": 512, "steps": 32}
@@ -668,6 +700,113 @@ def wkv_bound_ms(shape, dtype="float32"):
     nbytes = (4 * size + 4) * B * S * H * D + 4 * (
         H * D + (2 if with_s0 else 1) * B * H * D * D)
     return (*roof(flops, nbytes, "float32"), flops, nbytes)
+
+
+def tp_heads_inputs(torch, gen, kind, dtype):
+    """The 64-head call's inputs at ``TP_HEADS``' batch and length, and
+    the tp rank's block of them, in new tensors (the whole call's may go
+    first). ``kind`` "ssd": (xdt, B, C, dA), B and C column slices of the
+    whole conv output (4096 + 128 channels) and, for the rank, of its
+    384-channel [x_r, B, C], xdt and dA its 4 heads (contiguous, as the
+    model computes them). "wkv": (r, k, v, w, u, None), the rank's 4
+    heads of r, k, v (contiguous, as the column-parallel products come),
+    w and u. Returns (whole, rank, the rank's heads as a slice)."""
+    B, S, H, M, r = (TP_HEADS[k] for k in ("B", "S", "H", "M", "rank"))
+    hl, D = H // M, 64
+    heads = slice(r * hl, (r + 1) * hl)
+    dt = getattr(torch, dtype)
+    if kind == "ssd":
+        _, _, _, P, N, lo = TP_SSD_SHAPE
+        xdt = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt)
+        conv = torch.randn(B, S, H * P + 2 * N, generator=gen,
+                           device="cuda").to(dt)
+        dA = lo + (-0.01 - lo) * torch.rand(B, S, H, generator=gen,
+                                            device="cuda")
+        whole = (xdt, conv[..., H * P:H * P + N], conv[..., H * P + N:], dA)
+        mine = torch.cat([conv[..., r * hl * P:(r + 1) * hl * P],
+                          conv[..., H * P:]], -1)
+        rank = (xdt[:, :, heads].contiguous(), mine[..., hl * P:hl * P + N],
+                mine[..., hl * P + N:], dA[:, :, heads].contiguous())
+        return whole, rank, heads
+    r_, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
+                for _ in range(3))
+    w = torch.exp(-torch.exp(-8.0 + 12.0 * torch.rand(
+        B, S, H, D, generator=gen, device="cuda")))
+    u = torch.randn(H, D, generator=gen, device="cuda")
+    whole = (r_, k, v, w, u, None)
+    rank = tuple(None if t is None else t[heads].contiguous() if t is u
+                 else t[:, :, heads].contiguous() for t in whole)
+    return whole, rank, heads
+
+
+def tp_heads_vs_plain(torch, gen, kind, dtype, kernel, plain):
+    """The kernel on the tp rank's head block against its plain version
+    (the kernel gate) and against the same heads of the 64-head call
+    (the same gate; whether equal to the bit is printed). Returns the
+    largest error."""
+    whole, rank, heads = tp_heads_inputs(torch, gen, kind, dtype)
+    all_heads = kernel(*whole)
+    if kind == "wkv":
+        all_heads = all_heads[0]
+    same = all_heads[:, :, heads].contiguous()
+    del whole, all_heads
+    t0 = time.monotonic()
+    want = plain(*rank)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    got = kernel(*rank)
+    torch.cuda.synchronize()
+    pairs = [("against plain", got, want)]
+    if kind == "wkv":
+        pairs = [("o against plain", got[0], want[0]),
+                 ("final state against plain", got[1], want[1])]
+        got = got[0]
+    pairs.append(("against the 64-head call's heads", got, same))
+    max_err = 0.0
+    for what, g, w in pairs:
+        gate = "float32" if "state" in what else dtype
+        err, outside = worst(g, w, allowed(w, gate))
+        max_err = max(max_err, err)
+        print(f"  tp rank {TP_HEADS['rank']} of {TP_HEADS['M']} "
+              f"{kind} {dtype:8s} B={TP_HEADS['B']} S={TP_HEADS['S']} "
+              f"H={heads.stop - heads.start} {what}: max_abs_err {err:.3e} "
+              f"(tol {TOL_TEXT[gate]}), {outside} outside; equal to the "
+              f"bit {bool(torch.equal(g, w))}; plain {plain_s:.2f} s")
+        check(outside == 0 and math.isfinite(err),
+              f"{kind} kernel on a tp rank's heads disagrees ({what}, "
+              f"{dtype})")
+    del rank, got, want, same
+    release(torch)
+    return max_err
+
+
+def tp_heads_timing(torch, gen, kind, kernel, plain, card_line):
+    """Device time of the kernel and its plain version on the tp rank's
+    bf16 head block (``tp_heads_inputs``), beside the bound of
+    ``ssd_bound_ms`` / ``wkv_bound_ms`` at that shape (no library call
+    computes either)."""
+    shape = TP_SSD_SHAPE if kind == "ssd" else TP_WKV_SHAPE
+    bound = ssd_bound_ms if kind == "ssd" else wkv_bound_ms
+    bms, by, flops, nbytes = bound(shape, "bfloat16")
+    n = max(2, math.ceil(2 * L2_BYTES / nbytes))
+    ins = []
+    for _ in range(n):
+        _, rank, _ = tp_heads_inputs(torch, gen, kind, "bfloat16")
+        ins.append(rank)
+        release(torch)
+    ms = device_ms(torch, lambda i: kernel(*ins[i]), n, calls=16, reps=3)
+    plain_ms = device_ms(torch, lambda i: plain(*ins[i]), n, calls=1,
+                         reps=2)
+    print(f"  {kernel.__name__} tp rank's heads: {shape[:4]} bf16: kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, no library "
+          f"call; bound {bms * 1e3:.1f} us ({by}, {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP), {bms / ms:.3f} of it [{card_line}]")
+    del ins
+    release(torch)
+    return {"shape": "tp_rank", "dims": list(shape[:4]),
+            "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "flops": flops, "bytes": nbytes, "bound_share": bms / ms}
 
 
 def decode_vs_plain(torch, name, gen):
@@ -1405,13 +1544,15 @@ def one_rank_group(torch):
             os.remove(store)
 
 
-def spmd_train_phase(torch, card_line):
-    """The sharded training step at full width: the train phase's model
-    (starcoder2-3b, float32 masters, bf16 compute, AdamW) and batches
-    (global batch 2 x 1024, ``launch.train``'s configuration), 3 steps of
-    the static ``make_train_step``, then 3 steps of
+def spmd_train_phase(torch, card_line, train_args=TRAIN_ARGS,
+                     runs=SPMD_RUNS):
+    """The sharded training step at full width: the model of
+    ``train_args`` (the train phase's starcoder2-3b by default; float32
+    masters, bf16 compute, AdamW) and batches (global batch 2 x 1024,
+    ``launch.train``'s configuration), 3 steps of the static
+    ``make_train_step``, then 3 steps of
     ``make_train_step(param_shardings=..., zero1_mask=...)`` for each
-    (layout, ``grad_dtype``) of ``SPMD_RUNS`` on a one-rank NCCL mesh
+    (layout, ``grad_dtype``) of ``runs`` on a one-rank NCCL mesh
     (every collective a real call of one rank): the state is each rank's
     blocks; zero1 gathers the compute copy once a step, fsdp and tp each
     layer's blocks where the layer runs (again in the remat recompute),
@@ -1435,7 +1576,7 @@ def spmd_train_phase(torch, card_line):
     from repro_torch.models.builder import build_model
     from repro_torch.train.step import init_state, make_train_step
     from repro_torch.tree import tree_leaves, tree_map
-    args = launch_train.parse_args(TRAIN_ARGS)
+    args = launch_train.parse_args(train_args)
     cfg = get_config(args.arch, reduced=args.reduced).replace(
         attn_impl="torch", ssm_impl="torch", rwkv_impl="torch")
     model = build_model(cfg, "cuda")
@@ -1545,7 +1686,7 @@ def spmd_train_phase(torch, card_line):
           ", ".join(f"{t:.3f}" for t in static["step_s"]) + f" s; peak "
           f"{static['peak_bytes'] / 1e9:.2f} GB [{card_line}]")
     stats = {"static": static}
-    for layout, gd in SPMD_RUNS:
+    for layout, gd in runs:
         tcfg = dataclasses.replace(base, layout=layout, grad_dtype=gd)
         with one_rank_group(torch) as mesh:
             got = run(tcfg, against_static, mesh,
@@ -1728,22 +1869,24 @@ def dryrun_phase(torch, card_line, spmd):
     return out
 
 
-def tp_serve_phase(torch, model, params, card_line):
+def tp_serve_phase(torch, model, params, card_line, forward_launches,
+                   cell_launches):
     """The tp layout's sharded serving program at full width on a one-rank
-    NCCL mesh: ``make_forward(model, param_shardings=...)`` of the serve
-    phase's starcoder2-3b (bf16, ``attn_impl="cuda"``) on the forward
-    phase's batch (B=4, S=2048), then a prompt through
-    ``make_prefill_step`` and ``TP_SERVE["steps"]`` cells of
-    ``make_serve_step``, both with ``param_shardings`` and
+    NCCL mesh: ``make_forward(model, param_shardings=...)`` of ``model``
+    (bf16, the kernel paths) on the forward phase's batch (B=4, S=2048),
+    then a prompt through ``make_prefill_step`` and ``TP_SERVE["steps"]``
+    cells of ``make_serve_step``, both with ``param_shardings`` and
     ``cache_shardings`` and the rank's block of the cache
-    (``specs.attention_cache_block``), every layer's blocks gathered
-    where used, the heads, ``ff`` and vocabulary computed as the rank's
-    blocks (here the whole of them) with their all-reduces (real NCCL
-    calls of one rank), the argmax over the vocabulary blocks. Gates: the
-    logits against the unsharded kernel path's within the bf16 gate, the
-    greedy tokens equal to the unsharded steps', flash once per layer in
-    the forward and decode attention once per layer a cell (counts set
-    to 0 just before each sharded run and read just after)."""
+    (``specs.cache_block``: its rows, KV heads and recurrent heads),
+    every layer's blocks gathered where used, the attention heads,
+    ``ff``, vocabulary, Mamba-2 heads and RWKV-6 heads computed as the
+    rank's blocks (here the whole of them) with their collectives (real
+    NCCL calls of one rank), the argmax over the vocabulary blocks.
+    Gates: the logits against the unsharded kernel path's within the
+    bf16 gate, the greedy tokens equal to the unsharded steps', and the
+    kernels' launches: ``forward_launches`` (name: count) in the forward,
+    ``cell_launches`` in every cell, none of the others (counts set to 0
+    just before each sharded run and read just after)."""
     from repro_torch import sharding as S
     from repro_torch.data import make_batch
     from repro_torch.launch import specs
@@ -1752,7 +1895,6 @@ def tp_serve_phase(torch, model, params, card_line):
                                         make_serve_step)
     from repro_torch.tree import tree_leaves
     cfg = model.cfg
-    L = cfg.num_layers
     B, P, n, max_len = (TP_SERVE[k] for k in ("B", "prompt", "steps",
                                               "max_len"))
     batch = make_batch(cfg, *FORWARD_BATCH, seed=0)
@@ -1791,45 +1933,48 @@ def tp_serve_phase(torch, model, params, card_line):
         fwd_s = time.monotonic() - t0
         fwd_counts = read_counts()            # and ends
         err, outside = worst(got, want, allowed(want, "bfloat16"))
+        bit_equal = bool(torch.equal(got, want))
         del got, want
         whole = model.init_cache(B, max_len, device=specs.META)
         cache_sh = specs.cache_shardings(whole, mesh, cfg)
-        rows, positions, kv = specs.attention_cache_block(cfg, B, max_len,
-                                                          mesh)
+        block = specs.cache_block(cfg, B, max_len, mesh)
         kw = dict(param_shardings=sh, cache_shardings=cache_sh)
         zero_counts()                         # the path's run starts
         got_tok, got_wall = greedy(make_prefill_step(model, **kw),
                                    make_serve_step(model, **kw), blocks,
-                                   model.init_cache(rows, positions,
-                                                    kv_heads=kv))
+                                   model.init_cache(**block))
         serve_counts = read_counts()          # and ends
         del blocks
     cells = P - 1 + n
     print(f"  tp on a 1 x 1 NCCL mesh ({cfg.name} full width, bf16, leaves "
-          f"split over {split}): forward B={FORWARD_BATCH[0]} "
-          f"S={FORWARD_BATCH[1]} {fwd_s * 1e3:.1f} ms, logits against the "
-          f"unsharded kernel path max|diff| {err:.3e} ({outside} outside "
-          f"{TOL_TEXT['bfloat16']}), launches {fwd_counts}; serve B={B}: "
-          f"{P - 1} prefill + {n} greedy cells, launches {serve_counts}, "
-          f"tokens equal to the unsharded steps' "
+          f"split over {split}, cache block {block}): forward "
+          f"B={FORWARD_BATCH[0]} S={FORWARD_BATCH[1]} {fwd_s * 1e3:.1f} ms, "
+          f"logits against the unsharded kernel path max|diff| {err:.3e} "
+          f"({outside} outside {TOL_TEXT['bfloat16']}; equal to the bit: "
+          f"{bit_equal}), launches {fwd_counts}; serve B={B}: {P - 1} "
+          f"prefill + {n} greedy cells, launches {serve_counts}, tokens "
+          f"equal to the unsharded steps' "
           f"{bool(torch.equal(got_tok, want_tok))}; median cell "
           f"{got_wall * 1e3:.2f} ms sharded, {want_wall * 1e3:.2f} ms "
           f"unsharded (host wall) [{card_line}]")
     check(outside == 0 and math.isfinite(err),
-          "the sharded tp forward's logits differ from the unsharded ones")
+          f"{cfg.name}: the sharded tp forward's logits differ from the "
+          f"unsharded ones")
     check(torch.equal(got_tok, want_tok),
-          "the sharded tp serve step's tokens differ from the unsharded ones")
-    check(fwd_counts["flash_attention"] == L
-          and fwd_counts["decode_attention"] == 0,
-          f"sharded forward launches {fwd_counts}, expected flash {L}")
-    check(serve_counts["decode_attention"] == L * cells
-          and serve_counts["flash_attention"] == 0,
-          f"sharded serve launches {serve_counts}, expected decode "
-          f"{L * cells}")
+          f"{cfg.name}: the sharded tp serve step's tokens differ from the "
+          f"unsharded ones")
+    want_fwd = {k: forward_launches.get(k, 0) for k in fwd_counts}
+    want_serve = {k: cell_launches.get(k, 0) * cells for k in serve_counts}
+    check(fwd_counts == want_fwd, f"{cfg.name}: sharded forward launches "
+                                  f"{fwd_counts}, expected {want_fwd}")
+    check(serve_counts == want_serve, f"{cfg.name}: sharded serve launches "
+                                      f"{serve_counts}, expected "
+                                      f"{want_serve}")
     del batch
     release(torch)
-    return {"split_axes": split, "forward_ms": fwd_s * 1e3,
-            "logit_max_abs_err": err, "forward_launches": fwd_counts,
+    return {"split_axes": split, "cache_block": block,
+            "forward_ms": fwd_s * 1e3, "logit_max_abs_err": err,
+            "logits_bit_equal": bit_equal, "forward_launches": fwd_counts,
             "serve_cells": cells, "serve_launches": serve_counts,
             "cell_ms_sharded": got_wall * 1e3,
             "cell_ms_unsharded": want_wall * 1e3}
@@ -3130,6 +3275,9 @@ def main() -> int:
                       and got.dtype == xdt.dtype,
                       f"SSD kernel disagrees with plain on {name}/{dtype}")
                 del xdt, Bc, Cc, dA, want, got
+        for dtype in ("bfloat16", "float32"):
+            max_err = max(max_err, tp_heads_vs_plain(
+                torch, gen, "ssd", dtype, ssd_scan, ssd_scan_plain))
         ssd_record["max_abs_err"] = max_err
         release(torch)
 
@@ -3161,6 +3309,9 @@ def main() -> int:
                       f"WKV kernel disagrees with plain on "
                       f"{name}/{dtype}/{what}")
             del args_, want_o, want_s, got_o, got_s
+        for dtype in ("bfloat16", "float32"):
+            max_err = max(max_err, tp_heads_vs_plain(
+                torch, gen, "wkv", dtype, rwkv6_scan, rwkv6_plain))
         wkv_record["max_abs_err"] = max_err
         release(torch)
 
@@ -3306,7 +3457,10 @@ def main() -> int:
         release(torch)
 
     with phase("tp-serve"):
-        tp_serve_stats = tp_serve_phase(torch, model, params, card_line)
+        L = model.cfg.num_layers
+        tp_serve_stats = tp_serve_phase(torch, model, params, card_line,
+                                        {"flash_attention": L},
+                                        {"decode_attention": L})
         # the serving weights go: training needs the card's memory
         del params, model
         release(torch)
@@ -3446,6 +3600,8 @@ def main() -> int:
 
     with phase("spmd-train"):
         spmd_stats = spmd_train_phase(torch, card_line)
+        spmd_stats[SPMD_RECURRENT_ARGS[2]] = spmd_train_phase(
+            torch, card_line, SPMD_RECURRENT_ARGS, (("tp", "float32"),))
 
     with phase("dryrun"):
         dryrun_stats = dryrun_phase(torch, card_line, spmd_stats)
@@ -3504,6 +3660,22 @@ def main() -> int:
             recurrent[arch] = (rmodel, rparams, {"forward": stats})
             del batch, plain
             release(torch)
+
+    with phase("tp-recurrent"):
+        tp_recurrent_stats = {}
+        for arch, (rmodel, rparams, _) in recurrent.items():
+            rcfg = rmodel.cfg
+            if rcfg.family == "hybrid":
+                n_shared = num_shared_invocations(rcfg)
+                fwd = {"ssd_scan": rcfg.num_layers,
+                       "flash_attention": n_shared}
+                cell = {"decode_attention": n_shared}
+            else:
+                fwd, cell = {"rwkv6_scan": rcfg.num_layers}, {}
+            st = tp_serve_phase(torch, rmodel, rparams, card_line, fwd, cell)
+            tp_recurrent_stats[arch] = st
+            rec = ssd_record if rcfg.family == "hybrid" else wkv_record
+            rec["tp_launches"] = st["forward_launches"][rec["name"]]
 
     with phase("serve-recurrent"):
         for arch, (rmodel, rparams, stats) in recurrent.items():
@@ -3647,6 +3819,8 @@ def main() -> int:
                           library_ms=None)
         del ins
         release(torch)
+        ssd_record["tp_rank_row"] = ssd_timing["tp_rank"] = tp_heads_timing(
+            torch, gen, "ssd", ssd_scan, ssd_scan_plain, card_line)
 
         # WKV: the float32 row (fused views, nonzero s0) and the model's
         # own call (bf16 r, k, v and o, zero s0); the record carries the
@@ -3677,6 +3851,10 @@ def main() -> int:
             del ins
             release(torch)
         fp32_t, model_t = wkv_timings
+        wkv_tp = tp_heads_timing(torch, gen, "wkv", rwkv6_scan, rwkv6_plain,
+                                 card_line)
+        wkv_timings.append(wkv_tp)
+        wkv_record["tp_rank_row"] = wkv_tp
         wkv_record.update(
             ms=model_t["ms"], plain_ms=model_t["plain_ms"],
             bound_ms=model_t["bound_ms"], bound_by=model_t["bound_by"],
@@ -3689,6 +3867,7 @@ def main() -> int:
                           "wkv_timings": wkv_timings,
                           "seq_split": seq_split_stats,
                           "tp_serve": tp_serve_stats,
+                          "tp_recurrent": tp_recurrent_stats,
                           "serve": serve_stats, "profile": profile_stats,
                           "serve_paged": paged_stats, "fleet": fleet_stats,
                           "train": train_stats, "train_parity": parity,

@@ -26,11 +26,12 @@ The cells:
 - decode: one ``make_serve_step(model, param_shardings=,
   cache_shardings=)`` call on the rank's blocks (``serve_param_dtype``
   casts them) and the rank's block of the cache
-  (``specs.attention_cache_block``: its rows when the batch splits over
-  the data ranks, else its block of positions of the whole batch,
-  long_500k's B = 1, whose tokens every rank holds, as the reference
-  replicates them; its KV heads under tp), the decode attention merging
-  the data ranks' partials over a sequence-split cache.
+  (``specs.cache_block``: its rows when the batch splits over the data
+  ranks, else its block of positions of the whole batch, long_500k's
+  B = 1, whose tokens every rank holds, as the reference replicates
+  them; under tp its KV heads and its Mamba-2 or RWKV-6 heads), the
+  decode attention merging the data ranks' partials over a
+  sequence-split cache.
 
 Every model runs the plain PyTorch paths (``attn_impl``, ``ssm_impl``
 and ``rwkv_impl`` all ``"torch"``), as the reference's dry-run lowers its
@@ -43,7 +44,8 @@ op of the same shapes whose counted FLOPs are the loop's.
 The report's FLOPs and bytes are ``analytic.py``'s, as in the reference;
 the counted FLOPs ride along (``counted_flops``). Each artifact says
 whether the port's program is the reference's (``faithful``) and, if
-not, why (``unfaithful_because``).
+not, why (``unfaithful_because``): every cell's is, so the list is
+empty (the keys stay for the artifacts' readers).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch starcoder2-3b --shape train_4k
@@ -83,11 +85,6 @@ from repro_torch.tree import tree_leaves, tree_map
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun_torch")
-RECURRENT_REPLICATED = (
-    "the Mamba-2 and RWKV-6 layers gather their weights whole and compute "
-    "replicated over model under tp, and hold their recurrent state whole; "
-    "the reference splits ssm_inner, heads_flat and ff over model "
-    "(ROADMAP 7.5b)")
 PLAIN_IMPLS = dict(attn_impl="torch", ssm_impl="torch", rwkv_impl="torch")
 
 
@@ -158,22 +155,34 @@ def _blocks(cfg: ModelConfig, shardings, mesh: S.Mesh, dtype: torch.dtype):
 
 
 def _check_cache(cache, global_specs, cache_sh, mesh: S.Mesh,
-                 layout: str) -> None:
-    """The rank's attention cache leaves are the blocks ``cache_sh``
-    gives of the whole cache (under ``tp``; the other layouts hold every
-    KV head)."""
+                 cfg: ModelConfig, layout: str, block: Dict[str, int]
+                 ) -> None:
+    """The rank's cache leaves are the blocks ``cache_sh`` gives of the
+    whole cache, but where ``launch/specs.py``'s docstring says
+    otherwise: outside ``tp`` nothing splits over ``model``; ``conv``
+    holds the rank's rows and channels [x, B, C], ``wkv`` its rows and
+    heads (``block``'s ``recurrent_split``), and ``pos`` its rows."""
     whole = dict(tree_leaves(global_specs))
     spec_of = dict(tree_leaves(cache_sh))
+    n, N = block["recurrent_split"], cfg.ssm_state
     for path, leaf in tree_leaves(cache):
-        if path.split("/")[-1] not in ("k", "v", "xk", "xv"):
-            continue
+        shape, name = whole[path].shape, path.split("/")[-1]
         spec = spec_of[path]
         if layout != "tp":
-            spec = spec[:3] + (None, None)
-        want = _local_shape(whole[path].shape, spec, mesh)
-        if tuple(leaf.shape) != want:
+            spec = tuple(None if "model" in S.entry_axes(e) else e
+                         for e in spec)
+        want = list(_local_shape(shape, spec, mesh))
+        if name == "conv":
+            want[-3:] = [block["batch"], shape[-2],
+                         (shape[-1] - 2 * N) // n + 2 * N]
+        elif name == "wkv":
+            want[-4:] = [block["batch"], shape[-3] // n, *shape[-2:]]
+        elif name == "pos":
+            want = [block["batch"]]
+        if tuple(leaf.shape) != tuple(want):
             raise ValueError(f"cache leaf {path}: {tuple(leaf.shape)} is "
-                             f"not the block {want} of spec {spec}")
+                             f"not the rank's block {tuple(want)} (spec "
+                             f"{spec})")
 
 
 def _zeros(spec: specs.TensorSpec) -> torch.Tensor:
@@ -183,18 +192,14 @@ def _zeros(spec: specs.TensorSpec) -> torch.Tensor:
 def count_cell(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
                mesh: S.Mesh, *, serve_fsdp: bool = True,
                serve_param_dtype: Optional[str] = None,
-               fake: bool = True) -> Tuple[CellCounts, List[str]]:
-    """Run rank 0's step of the cell (module docstring) and count it:
-    (counts, unfaithful_because). ``fake=False`` runs the same program on
-    real CPU tensors (zeros), for tests that hold the fake count to a
-    real one."""
+               fake: bool = True) -> CellCounts:
+    """Run rank 0's step of the cell (module docstring) and count it.
+    ``fake=False`` runs the same program on real CPU tensors (zeros), for
+    tests that hold the fake count to a real one."""
     model = build_model(cfg.replace(**PLAIN_IMPLS), "cpu")
     cfg = model.cfg
     layout = tcfg.layout
     axes = param_axes(cfg)
-    why = []
-    if layout in ("tp", "moe_serve") and cfg.family in ("hybrid", "ssm"):
-        why.append(RECURRENT_REPLICATED)
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.models import rwkv
@@ -233,17 +238,16 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
                        if cfg.family == "encdec" else 0)
             whole = specs.cache_specs(model, cfg, shape)
             cache_sh = specs.cache_shardings(whole, mesh, cfg)
-            rows, positions, kv = specs.attention_cache_block(
-                cfg, shape.global_batch, shape.seq_len, mesh, layout)
-            cache = model.init_cache(rows, positions, enc_len=enc_len,
-                                     kv_heads=kv)
-            _check_cache(cache, whole, cache_sh, mesh, layout)
-            tokens = torch.zeros((rows, 1), dtype=torch.int64)
+            block = specs.cache_block(cfg, shape.global_batch,
+                                      shape.seq_len, mesh, layout)
+            cache = model.init_cache(**block, enc_len=enc_len)
+            _check_cache(cache, whole, cache_sh, mesh, cfg, layout, block)
+            tokens = torch.zeros((block["batch"], 1), dtype=torch.int64)
             serve = make_serve_step(model, param_shardings=shardings,
                                     cache_shardings=cache_sh, layout=layout)
             with record_collectives() as colls, counter:
                 serve(blocks, cache, tokens)
-    return CellCounts(float(counter.get_total_flops()), colls), why
+    return CellCounts(float(counter.get_total_flops()), colls)
 
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
@@ -280,8 +284,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     tcfg = tcfg_override or _tcfg(cfg)
 
     t0 = time.monotonic()
-    counts, why = count_cell(cfg, shape, tcfg, mesh, serve_fsdp=serve_fsdp,
-                             serve_param_dtype=serve_param_dtype)
+    counts = count_cell(cfg, shape, tcfg, mesh, serve_fsdp=serve_fsdp,
+                        serve_param_dtype=serve_param_dtype)
     t_run = time.monotonic() - t0
 
     tokens = shape.global_batch * (shape.seq_len
@@ -319,7 +323,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "roofline": report.to_json(),
         "memory_analysis": None,          # fake storages are not tracked
         "counted_flops": counts.flops,
-        "faithful": not why, "unfaithful_because": why,
+        "faithful": True, "unfaithful_because": [],
     }
     return counts, info
 
@@ -406,8 +410,7 @@ def run_cells(archs, shapes, meshes, out_dir: str,
                           f"run={info['t_lower_s']:6.1f}s "
                           f"bound={r['bottleneck']:<10s} "
                           f"t={max(r['t_compute'], r['t_memory'], r['t_collective'])*1e3:8.2f}ms "
-                          f"useful={r['useful_flops_ratio']:.2f}"
-                          + ("" if info["faithful"] else " (unfaithful)"),
+                          f"useful={r['useful_flops_ratio']:.2f}",
                           flush=True)
                     _write(os.path.join(out_dir, tag + ".json"), info)
                     n_ok += 1

@@ -43,6 +43,16 @@ port leaf (shape)                      rule
                                        ends in ``']``, so its leaf takes
                                        this fall-through)
 =====================================  ==================================
+
+A rank's block of the cache, as the sharded serve step computes on it
+(:func:`cache_block`, ``Model.init_cache(**block)``), is the block these
+specs give, except where the ``tp`` compute needs another: the KV heads
+split only under ``tp``; a ``conv`` leaf holds the rank's rows (as
+``state`` does) and its channels [x, B, C] (d_inner / M + 2N of them)
+where the spec gives every row and a contiguous block of
+(d_inner + 2N) / M channels; a ``wkv`` leaf holds the rank's heads
+(B, H / M, Dh, Dh), the reference's ``wkv`` rule, where the ``kv`` rule
+that meets it first splits its Dh over ``model``.
 """
 from __future__ import annotations
 
@@ -57,7 +67,7 @@ from repro_torch.data.pipeline import make_batch
 from repro_torch.models import modality
 from repro_torch.models.builder import Model
 from repro_torch.sharding import (MeshView, Spec, data_axes, data_size,
-                                  entry_axes)
+                                  entry_axes, param_spec, spec_axes)
 from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Any
@@ -184,8 +194,9 @@ def attention_cache_block(cfg: ModelConfig, batch: int, max_len: int,
     The KV heads split over ``model`` only under ``tp``, the layout whose
     attention runs on the rank's heads; the others compute every head
     and hold them all. The recurrent leaves (Mamba-2 ``state`` and
-    ``conv``, RWKV-6 ``wkv`` and ``tok_*``) are held whole: their layers
-    compute replicated over ``model`` (ROADMAP.md 7.5b)."""
+    ``conv``, RWKV-6 ``wkv`` and ``tok_*``) have the same rows; their
+    heads split as :func:`recurrent_split` says (:func:`cache_block`
+    gives both)."""
     shape = (1, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     spec = cache_spec("kv/k", shape, mesh)
     if layout != "tp":
@@ -193,6 +204,36 @@ def attention_cache_block(cfg: ModelConfig, batch: int, max_len: int,
     local = [n // math.prod(mesh.shape[a] for a in entry_axes(e))
              for n, e in zip(shape, spec)]
     return local[1], local[2], local[3]
+
+
+def recurrent_split(cfg: ModelConfig, mesh: MeshView, layout: str = "tp"
+                    ) -> int:
+    """How many model ranks the Mamba-2 or RWKV-6 heads of a ``tp`` rank
+    split over: the model axis's size where the heads' spec (``A_log``'s,
+    ``u``'s) splits them, else 1 (no recurrent layers, heads that do not
+    divide, or a layout without tensor parallelism)."""
+    if layout != "tp" or cfg.family not in ("hybrid", "ssm"):
+        return 1
+    if cfg.family == "hybrid":
+        axes, shape = ("ssm_heads",), (cfg.ssm_heads,)
+    else:
+        Dh = cfg.rwkv_head_dim
+        axes, shape = ("heads", "head_dim"), (cfg.d_model // Dh, Dh)
+    spec = param_spec(axes, cfg, mesh, shape, layout=layout)
+    return math.prod(mesh.shape[a] for a in spec_axes(spec))
+
+
+def cache_block(cfg: ModelConfig, batch: int, max_len: int,
+                mesh: MeshView, layout: str = "tp") -> Dict[str, int]:
+    """A rank's block of the decode cache, as the keyword arguments of
+    ``Model.init_cache`` and ``Model.init_paged_cache``: ``batch`` and
+    ``max_len`` its rows and positions and ``kv_heads`` its KV heads
+    (:func:`attention_cache_block`), ``recurrent_split`` the split of its
+    recurrent heads (:func:`recurrent_split`)."""
+    rows, positions, kv = attention_cache_block(cfg, batch, max_len, mesh,
+                                                layout)
+    return {"batch": rows, "max_len": positions, "kv_heads": kv,
+            "recurrent_split": recurrent_split(cfg, mesh, layout)}
 
 
 def cache_shardings(cache: Tree, mesh: MeshView, cfg: ModelConfig) -> Tree:

@@ -48,12 +48,14 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int,
                    device: Optional[torch.device] = None, *,
-                   enc_len: int = 0, kv_heads: Optional[int] = None) -> Tree:
+                   enc_len: int = 0, kv_heads: Optional[int] = None,
+                   recurrent_split: int = 1) -> Tree:
         """The decode cache; ``enc_len`` sizes encdec's cross caches;
-        ``kv_heads`` makes a tensor-parallel rank's block of it."""
+        ``kv_heads`` and ``recurrent_split`` make a tensor-parallel rank's
+        block of it (``launch.specs.cache_block`` gives them)."""
         return transformer.init_decode_cache(
             self.cfg, batch, max_len, device or self.device, enc_len=enc_len,
-            kv_heads=kv_heads)
+            kv_heads=kv_heads, recurrent_split=recurrent_split)
 
     def decode(self, params: Tree, cache: Tree,
                batch: Dict[str, torch.Tensor],
@@ -66,11 +68,13 @@ class Model:
                          num_pages: int,
                          device: Optional[torch.device] = None,
                          enc_len: int = 0,
-                         kv_heads: Optional[int] = None) -> Tree:
+                         kv_heads: Optional[int] = None,
+                         recurrent_split: int = 1) -> Tree:
         return transformer.init_paged_decode_cache(
             self.cfg, batch, max_len, page_size=page_size,
             num_pages=num_pages, device=device or self.device,
-            enc_len=enc_len, kv_heads=kv_heads)
+            enc_len=enc_len, kv_heads=kv_heads,
+            recurrent_split=recurrent_split)
 
     def decode_paged(self, params: Tree, cache: Tree,
                      batch: Dict[str, torch.Tensor], advance=None

@@ -15,7 +15,8 @@ The weights may be ``sharding.Sharded`` leaves, gathered where they are
 used. Under the ``tp`` layout the embedding is vocabulary-parallel (the
 rank's rows of ``tok``: ids outside them give 0, then one all-reduce) and
 the unembedding column-parallel (the rank's vocabulary block of the
-logits).
+logits), and an RMS norm over channels split across ranks sums its
+statistic over them (``rms_norm(split=)``).
 """
 from __future__ import annotations
 
@@ -58,11 +59,22 @@ def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
-    """fp32 RMS norm scaled by ``1 + gamma`` (gamma stored zero-centred)."""
+             eps: float = 1e-5, split=(None, ())) -> torch.Tensor:
+    """fp32 RMS norm scaled by ``1 + gamma`` (gamma stored zero-centred).
+    ``split`` (mesh, axes): ``x``'s last dim (and ``gamma``) is this
+    rank's block of one split over the ranks of ``axes``, and the mean
+    of squares is over all of it: one all-reduce of the rank's sums,
+    whose backward sums too (every rank's statistic reads every
+    rank's channels)."""
     gamma = SH.take(gamma)
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    mesh, axes = split
+    if axes:
+        sq = SH.all_reduce(x32.square().sum(dim=-1, keepdim=True), mesh,
+                           axes)
+        var = sq / (x.shape[-1] * mesh.group_size(axes))
+    else:
+        var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + gamma.float())).to(x.dtype)
 

@@ -16,6 +16,25 @@ every single-token decode step, run the sequential scan, as the
 reference's XLA path does. The ``mix_*`` vectors, ``w0``, ``u`` and the
 ``ln_x`` gamma are stored in float32 always: the reference reads them in
 float32.
+
+Tensor parallelism: the leaves may come as ``sharding.Sharded`` leaves.
+Where ``u``'s spec splits the heads over model ranks (the ``tp``
+layout), the time mix runs on the rank's heads: the lerps on the whole
+d, then r, k, v and g column-parallel, the decay on the rank's channels
+(``tanh(xw @ w_lora_a)`` whole, then the rank's columns of ``w_lora_b``
+and ``w0``), the WKV scan on the rank's heads, ``ln_x`` over the
+channels of every rank (its mean of squares summed over them), and
+``wo`` row-parallel with its output summed. Where ``wk``/``wv`` split on
+``ff`` and ``wr`` on its output channels, the channel mix sums
+``kk @ wv`` over the ranks into each rank's block of channels
+(reduce-scatter), gates it by the rank's columns of ``xr @ wr`` and
+gathers the blocks. The leaves every rank holds whole and reads in
+that compute (the ``mix_*`` vectors, ``w_lora_a``, and the slices of
+``w_lora_b``, ``w0`` and ``ln_x``) have their gradients summed over the
+ranks. Where the heads do not split (a block would cut a head), the time
+mix computes on whole leaves, and so does the channel mix where
+``ff`` or the channels do not split. The ``wkv`` state of the decode
+cache is then the rank's heads; the token shifts stay whole.
 """
 from __future__ import annotations
 
@@ -24,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.rwkv6 import rwkv6_plain, rwkv6_scan
 from repro_torch.models import layers as L
@@ -82,20 +102,70 @@ def _lerp(x: torch.Tensor, xs: torch.Tensor, mix: torch.Tensor
 
 
 def rwkv_decay(p: Tree, xw: torch.Tensor) -> torch.Tensor:
-    """Data-dependent decay w_t in (0,1): exp(-exp(w0 + lora(x)))."""
+    """Data-dependent decay w_t in (0,1): exp(-exp(w0 + lora(x))) (of the
+    channels of ``w0`` and ``w_lora_b``'s columns)."""
     lo = torch.tanh(xw @ p["w_lora_a"].to(xw.dtype)) \
         @ p["w_lora_b"].to(xw.dtype)
     logw = p["w0"].to(torch.float32) + lo.to(torch.float32)
     return torch.exp(-torch.exp(torch.clamp(logw, -8.0, 4.0)))
 
 
+Split = Tuple[Optional[SH.Mesh], Tuple[str, ...]]
+
+
+def _blocks(mesh: SH.Mesh, axes, size: int):
+    """Rank i's block of ``size`` rows over the ranks of ``axes``, as the
+    ranges ``sharding.take_ranges`` reads."""
+    step = size // mesh.group_size(axes)
+    return lambda i: [(i * step, (i + 1) * step)]
+
+
+def _tmix_local(p: Tree, cfg: ModelConfig) -> Tuple[Tree, Split]:
+    """(the time mix's leaves the rank computes with, the split of its
+    heads): module docstring."""
+    mesh, axes = SH.split_group(p["u"])
+    if not axes:
+        return SH.whole_tree(p), (None, ())
+    H, _ = _dims(cfg)
+    chans, heads = _blocks(mesh, axes, cfg.d_model), _blocks(mesh, axes, H)
+    out = {k: SH.whole_in(p[k], mesh, axes)
+           for k in [f"mix_{c}" for c in "rkvgw"] + ["w_lora_a"]}
+    for name, dim in (("wr", 1), ("wk", 1), ("wv", 1), ("wg", 1),
+                      ("wo", 0), ("w0", 0), ("ln_x", 0), ("w_lora_b", 1)):
+        out[name] = SH.take_ranges(p[name], dim, chans, mesh, axes)
+    out["u"] = SH.take_ranges(p["u"], 0, heads, mesh, axes)
+    return out, (mesh, axes)
+
+
+def _cmix_local(p: Tree, cfg: ModelConfig) -> Tuple[Tree, Split]:
+    """(the channel mix's leaves the rank computes with, the split):
+    ``wk`` and ``wv`` on the rank's block of ``ff``, ``wr`` on its block
+    of channels, where all three split over the same ranks."""
+    mesh, axes = SH.split_group(p["wk"])
+    if not axes or SH.split_axes(p["wr"]) != axes \
+            or SH.split_axes(p["wv"]) != axes:
+        return SH.whole_tree(p), (None, ())
+    ff, chans = (_blocks(mesh, axes, cfg.d_ff),
+                 _blocks(mesh, axes, cfg.d_model))
+    return ({"mix_k": SH.whole_in(p["mix_k"], mesh, axes),
+             "mix_r": SH.whole_in(p["mix_r"], mesh, axes),
+             "wk": SH.take_ranges(p["wk"], 1, ff, mesh, axes),
+             "wv": SH.take_ranges(p["wv"], 0, ff, mesh, axes),
+             "wr": SH.take_ranges(p["wr"], 1, chans, mesh, axes)},
+            (mesh, axes))
+
+
 def apply_tmix(p: Tree, x: torch.Tensor, cfg: ModelConfig,
                prev_tok: torch.Tensor, state: Optional[torch.Tensor]
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Time-mix over a full sequence. ``state`` (B, H, Dh, Dh) float32, or
-    None for zeros. Returns (out, last_tok, new_state)."""
-    B, S, d = x.shape
-    H, Dh = _dims(cfg)
+    None for zeros (the rank's heads under tensor parallelism). Returns
+    (out, last_tok, new_state)."""
+    p, split = _tmix_local(p, cfg)
+    x = SH.copy_to(x, *split)
+    B, S, _ = x.shape
+    Dh = cfg.rwkv_head_dim
+    H = p["u"].shape[0]
     xs = _shift(x, prev_tok)
     xr = _lerp(x, xs, p["mix_r"])
     xk = _lerp(x, xs, p["mix_k"])
@@ -119,26 +189,33 @@ def apply_tmix(p: Tree, x: torch.Tensor, cfg: ModelConfig,
         o, state = _wkv_scan(r, k, v, w, u, state)
     else:
         raise ValueError(f"unknown rwkv_impl {cfg.rwkv_impl!r}")
-    o = o.reshape(B, S, d).to(dt)
-    o = L.rms_norm(o, p["ln_x"], cfg.norm_eps) * g
-    return o @ p["wo"].to(dt), x[:, -1:], state
+    o = o.reshape(B, S, H * Dh).to(dt)
+    o = L.rms_norm(o, p["ln_x"], cfg.norm_eps, split) * g
+    return SH.reduce_from(o @ p["wo"].to(dt), *split), x[:, -1:], state
 
 
 def apply_cmix(p: Tree, x: torch.Tensor, cfg: ModelConfig,
                prev_tok: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    p, split = _cmix_local(p, cfg)
+    x = SH.copy_to(x, *split)
     xs = _shift(x, prev_tok)
     xk = _lerp(x, xs, p["mix_k"])
     xr = _lerp(x, xs, p["mix_r"])
     dt = x.dtype
     kk = torch.square(torch.relu(xk @ p["wk"].to(dt)))
-    out = torch.sigmoid(xr @ p["wr"].to(dt)) * (kk @ p["wv"].to(dt))
-    return out, x[:, -1:]
+    y = SH.reduce_scatter(kk @ p["wv"].to(dt), *split, dim=-1)
+    out = torch.sigmoid(xr @ p["wr"].to(dt)) * y
+    return SH.gather_alike(out, *split, dim=-1), x[:, -1:]
 
 
-def init_rwkv_state(cfg: ModelConfig, batch: int, dtype, device) -> Tree:
+def init_rwkv_state(cfg: ModelConfig, batch: int, dtype, device,
+                    split: int = 1) -> Tree:
+    """One layer's decode state; ``split`` > 1: a rank's block when the
+    heads split over that many ranks (its heads' ``wkv``; the token
+    shifts whole)."""
     H, Dh = _dims(cfg)
     return {
-        "wkv": torch.zeros((batch, H, Dh, Dh), dtype=torch.float32,
+        "wkv": torch.zeros((batch, H // split, Dh, Dh), dtype=torch.float32,
                            device=device),
         "tok_t": torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
                              device=device),

@@ -12,14 +12,28 @@ float32.
 Single B/C group (G=1), conv width 4, Mamba-2 gated-RMSNorm output.
 ``A_log``, ``dt_bias`` and the gated norm's ``norm`` are stored in
 float32 always: the reference reads them in float32.
+
+Tensor parallelism: the leaves may come as ``sharding.Sharded`` leaves.
+Where ``A_log``'s spec splits the heads over model ranks (the ``tp``
+layout), each rank runs its H/M heads: of ``in_proj`` the columns of
+its z, x and dt and the B and C columns whole (one B/C group, which
+every head reads), of the conv its x channels and B and C. Those
+leaves' contiguous blocks do not follow the heads (``in_proj``'s axis
+concatenates z, x, B, C and dt), so ``sharding.take_ranges`` regroups
+them per use. The gated norm's mean of squares is summed over the
+ranks, ``out_proj`` is row-parallel and its output summed over them.
+The decode cache then holds the rank's block: its heads' ``state`` and
+its conv channels [x, B, C]. Where the heads do not split, the layer
+computes on whole leaves.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
@@ -53,12 +67,48 @@ def init_mamba2(gen, cfg: ModelConfig, *, dtype, device) -> Tree:
     }
 
 
-def _split_proj(p: Tree, x: torch.Tensor, cfg: ModelConfig
+Split = Tuple[Optional[SH.Mesh], Tuple[str, ...]]
+
+
+def _local(p: Tree, cfg: ModelConfig) -> Tuple[Tree, Split]:
+    """(the leaves the rank computes with, the (mesh, axes) its heads are
+    split over, ``(None, ())`` when they are not): module docstring."""
+    mesh, axes = SH.split_group(p["A_log"])
+    if not axes:
+        return SH.whole_tree(p), (None, ())
+    n = mesh.group_size(axes)
+    d_in, H, _, N = _dims(cfg)
+    dl, hl = d_in // n, H // n
+
+    def block(size):
+        return lambda i: [(i * size, (i + 1) * size)]
+
+    def conv(i, base=0):                        # [x_i, B, C]
+        return [(base + i * dl, base + (i + 1) * dl),
+                (base + d_in, base + d_in + 2 * N)]
+
+    def proj(i):                                # [z_i, x_i, B, C, dt_i]
+        dt0 = 2 * d_in + 2 * N
+        return ([(i * dl, (i + 1) * dl)] + conv(i, d_in)
+                + [(dt0 + i * hl, dt0 + (i + 1) * hl)])
+
+    def take(name, dim, wants):
+        return SH.take_ranges(p[name], dim, wants, mesh, axes)
+    return ({"in_proj": take("in_proj", 1, proj),
+             "conv_w": take("conv_w", 1, conv),
+             "conv_b": take("conv_b", 0, conv),
+             **{k: take(k, 0, block(hl)) for k in ("A_log", "D", "dt_bias")},
+             "norm": take("norm", 0, block(dl)),
+             "out_proj": take("out_proj", 0, block(dl))}, (mesh, axes))
+
+
+def _split_proj(p: Tree, x: torch.Tensor, N: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(z, the conv input [x, B, C], dt): the reference's five-way split,
     with x, B and C kept as the one column slice of the projection that
-    the reference concatenates back for the convolution."""
-    d_in, H, P, N = _dims(cfg)
+    the reference concatenates back for the convolution (of the rank's
+    heads, with ``p`` from :func:`_local`)."""
+    d_in = p["norm"].shape[0]
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     return (zxbcdt[..., :d_in], zxbcdt[..., d_in:2 * d_in + 2 * N],
             zxbcdt[..., 2 * d_in + 2 * N:])
@@ -73,13 +123,13 @@ def _causal_conv(p: Tree, u: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_out(p: Tree, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, split: Split) -> torch.Tensor:
     """Skip term, gated RMS norm and the output projection; y, xh
-    (..., H, P), z (..., d_in)."""
+    (..., H, P), z (..., d_in), of the rank's heads under ``split``."""
     y = y + p["D"].to(y.dtype)[:, None] * xh
     y = y.flatten(-2)
-    y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(y.dtype)
+    y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps, split)
+    return SH.reduce_from(y @ p["out_proj"].to(y.dtype), *split)
 
 
 def _ssd_chunked(xdt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
@@ -128,12 +178,16 @@ def _ssd_chunked(xdt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
 
 
 def apply_mamba2(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence SSD. x: (B, S, d_model) -> (B, S, d_model)."""
+    """Full-sequence SSD. x: (B, S, d_model) -> (B, S, d_model), on the
+    rank's heads under tensor parallelism (module docstring)."""
+    p, split = _local(p, cfg)
+    x = SH.copy_to(x, *split)
     B, S, _ = x.shape
-    d_in, H, P, N = _dims(cfg)
+    d_in, H = p["norm"].shape[0], p["A_log"].shape[0]
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
     f32 = torch.float32
 
-    z, xbc, dt = _split_proj(p, x, cfg)
+    z, xbc, dt = _split_proj(p, x, N)
     conv_out = _causal_conv(p, xbc)
     xin, Bc, Cc = conv_out.split([d_in, N, N], dim=-1)   # column views
 
@@ -152,34 +206,40 @@ def apply_mamba2(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         y = _ssd_chunked(xdt, Bc, Cc, dA, Q)
     else:
         raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
-    return _gated_out(p, y, xh, z, cfg)
+    return _gated_out(p, y, xh, z, cfg, split)
 
 
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 
-def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype,
-                      device) -> Tree:
+def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype, device,
+                      split: int = 1) -> Tree:
+    """The decode cache of one layer; ``split`` > 1: a rank's block when
+    the heads split over that many ranks (its heads' ``state``, its conv
+    channels [x, B, C])."""
     d_in, H, P, N = _dims(cfg)
-    conv_dim = d_in + 2 * N
     return {
-        "state": torch.zeros((batch, H, N, P), dtype=torch.float32,
+        "state": torch.zeros((batch, H // split, N, P), dtype=torch.float32,
                              device=device),
-        "conv": torch.zeros((batch, CONV_W - 1, conv_dim), dtype=dtype,
-                            device=device),
+        "conv": torch.zeros((batch, CONV_W - 1, d_in // split + 2 * N),
+                            dtype=dtype, device=device),
     }
 
 
 def decode_mamba2(p: Tree, x: torch.Tensor, cache: Tree, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, Tree]:
     """x: (B, 1, d_model); O(1) state update. Returns (out, new cache);
-    the given cache is not modified."""
+    the given cache is not modified. On the rank's heads and cache block
+    under tensor parallelism."""
+    p, split = _local(p, cfg)
+    x = SH.copy_to(x, *split)
     B = x.shape[0]
-    d_in, H, P, N = _dims(cfg)
+    d_in, H = p["norm"].shape[0], p["A_log"].shape[0]
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
     f32 = torch.float32
 
-    z, xbc, dt = _split_proj(p, x, cfg)
+    z, xbc, dt = _split_proj(p, x, N)
     cur = xbc[:, 0]                                                 # (B,conv_dim)
     w = p["conv_w"].to(cur.dtype)
     hist = cache["conv"]
@@ -194,7 +254,7 @@ def decode_mamba2(p: Tree, x: torch.Tensor, cache: Tree, cfg: ModelConfig
     state = cache["state"] * dA[:, :, None, None] + torch.einsum(
         "bn,bh,bhp->bhnp", Bc.to(f32), dt, xh.to(f32))
     y = torch.einsum("bn,bhnp->bhp", Cc.to(f32), state).to(xh.dtype)
-    out = _gated_out(p, y[:, None], xh[:, None], z, cfg)
+    out = _gated_out(p, y[:, None], xh[:, None], z, cfg, split)
     new_cache = {
         "state": state,
         "conv": torch.cat([hist[:, 1:], cur[:, None]], dim=1),

@@ -31,10 +31,10 @@ blocks are taken by ``tree_unbind`` and gathered where the layer uses
 them, inside the function that ``_run`` recomputes under remat, so the
 backward gathers them again and a layer's full copy lives only while it
 runs; the embedding, final norm and unembedding are gathered where they
-are used too. The attention, MLP and vocabulary code computes on the
-rank's model blocks under ``tp`` (``attention.py``, ``ffn.py``,
-``layers.py``); the Mamba-2 and RWKV-6 layers gather their leaves whole
-and compute replicated over ``model``. With plain tensors (no mesh)
+are used too. Under ``tp`` every layer computes on the rank's model
+blocks: attention heads, MLP ``ff`` and the vocabulary (``attention.py``,
+``ffn.py``, ``layers.py``), the Mamba-2 heads (``ssm.py``) and the RWKV-6
+heads and channel-mix blocks (``rwkv.py``). With plain tensors (no mesh)
 nothing is gathered.
 
 Public entry points (used by the builder, train/serve steps and engine):
@@ -368,7 +368,6 @@ def _shared_block(sp: Tree, x: torch.Tensor, cfg: ModelConfig,
 
 def _mamba_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig
                  ) -> torch.Tensor:
-    lp = SH.whole_tree(lp)          # replicated over model (ROADMAP 7.5b)
     hn = L.rms_norm(x, lp["ln"]["gamma"], cfg.norm_eps)
     return x + M.apply_mamba2(lp["mamba"], hn, cfg)
 
@@ -398,7 +397,6 @@ def _hybrid_trunk(params: Tree, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _rwkv_layer(h: torch.Tensor, lp: Tree, cfg: ModelConfig) -> torch.Tensor:
-    lp = SH.whole_tree(lp)          # replicated over model (ROADMAP 7.5b)
     zeros_tok = torch.zeros((h.shape[0], 1, cfg.d_model), dtype=h.dtype,
                             device=h.device)
     hn = L.rms_norm(h, lp["ln1"]["gamma"], cfg.norm_eps)
@@ -462,7 +460,8 @@ def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device, enc_len: int = 0,
-                      kv_heads: Optional[int] = None) -> Tree:
+                      kv_heads: Optional[int] = None,
+                      recurrent_split: int = 1) -> Tree:
     """Cache tree for ``decode_step``, laid out as the reference's: every
     leaf's leading axes are the stacked layer axes, then the batch axis,
     plus the per-row write index ``pos`` (B,) int32.
@@ -483,7 +482,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     A rank's block of a sharded cache: ``batch`` its rows, ``max_len`` its
     positions (the cache split on its sequence), ``kv_heads`` its KV
     heads (default all), as ``launch.specs.cache_shardings`` splits the
-    attention leaves."""
+    attention leaves, and ``recurrent_split`` the number of ranks the
+    Mamba-2 or RWKV-6 heads split over (``launch.specs.cache_block``):
+    the ``state``, ``conv`` and ``wkv`` leaves of the rank's heads
+    (``ssm.init_mamba2_cache``, ``rwkv.init_rwkv_state``)."""
     check_family(cfg)
     dt = L.torch_dtype(cfg.dtype)
     KV = cfg.num_kv_heads if kv_heads is None else kv_heads
@@ -514,13 +516,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.family == "hybrid":
         cad = cfg.shared_attn_every
         n_blocks, leftover = divmod(cfg.num_layers, cad)
-        one = M.init_mamba2_cache(cfg, batch, dt, device)
+        one = M.init_mamba2_cache(cfg, batch, dt, device, recurrent_split)
         c = {"blocks": stacked(one, (n_blocks, cad)),
              "shared_kv": kv(n_blocks), "pos": pos}
         if leftover:
             c["tail"] = stacked(one, (leftover,))
         return c
-    return {**stacked(R.init_rwkv_state(cfg, batch, dt, device),
+    return {**stacked(R.init_rwkv_state(cfg, batch, dt, device,
+                                        recurrent_split),
                       (cfg.num_layers,)), "pos": pos}
 
 
@@ -562,7 +565,6 @@ def _commit(leaf: torch.Tensor, new: torch.Tensor,
 def _decode_mamba_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                         state: torch.Tensor, conv: torch.Tensor,
                         advance: Optional[torch.Tensor]) -> torch.Tensor:
-    lp = SH.whole_tree(lp)
     hn = L.rms_norm(x, lp["ln"]["gamma"], cfg.norm_eps)
     out, new = M.decode_mamba2(lp["mamba"], hn,
                                {"state": state, "conv": conv}, cfg)
@@ -574,7 +576,6 @@ def _decode_mamba_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
 def _decode_rwkv_layer(lp: Tree, x: torch.Tensor, cfg: ModelConfig,
                        st: Tree, advance: Optional[torch.Tensor]
                        ) -> torch.Tensor:
-    lp = SH.whole_tree(lp)
     hn = L.rms_norm(x, lp["ln1"]["gamma"], cfg.norm_eps)
     out, new = R.decode_tmix(lp["tmix"], hn, cfg, st)
     x = x + out
@@ -699,7 +700,8 @@ def encode_for_decode(params: Tree, cfg: ModelConfig,
 def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                             page_size: int, num_pages: int, device,
                             enc_len: int = 0,
-                            kv_heads: Optional[int] = None) -> Tree:
+                            kv_heads: Optional[int] = None,
+                            recurrent_split: int = 1) -> Tree:
     """Cache tree for ``decode_step_paged``: every length-bearing KV leaf
     becomes a physical page pool ``(layers, num_pages, page_size, KV, Dh)``
     shared by all rows, indexed through a per-row ``page_table`` leaf
@@ -713,8 +715,8 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
       the table keeps the engine's page accounting uniform);
     - vlm: as dense;
     - encdec: none (NotImplementedError, as in the reference).
-    ``kv_heads``: the rank's KV heads under tensor parallelism (default
-    all)."""
+    ``kv_heads`` and ``recurrent_split``: the rank's block under tensor
+    parallelism, as for :func:`init_decode_cache`."""
     check_family(cfg)
     if cfg.family == "encdec":
         raise NotImplementedError(
@@ -743,7 +745,8 @@ def init_paged_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if nd:
             c["kv_dense"] = kv_pool(nd)
         return c
-    c = init_decode_cache(cfg, batch, max_len, device, kv_heads=kv_heads)
+    c = init_decode_cache(cfg, batch, max_len, device, kv_heads=kv_heads,
+                          recurrent_split=recurrent_split)
     if cfg.family == "hybrid":
         c["shared_kv"] = kv_pool(num_shared_invocations(cfg))
     c["page_table"] = table

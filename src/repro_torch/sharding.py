@@ -29,7 +29,7 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -384,8 +384,13 @@ def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
         _record("all-reduce", x, group)
 
 
-def _all_to_all(out: torch.Tensor, x: torch.Tensor, group) -> None:
-    dist.all_to_all_single(out, x, group=group)
+def _all_to_all(out: torch.Tensor, x: torch.Tensor, group,
+                out_splits: Optional[Sequence[int]] = None,
+                in_splits: Optional[Sequence[int]] = None) -> None:
+    """All-to-all along dim 0, equal blocks, or ``in_splits[t]`` rows to
+    group rank t and ``out_splits[s]`` from rank s (recorded by the rows
+    this rank receives)."""
+    dist.all_to_all_single(out, x, out_splits, in_splits, group=group)
     if recorders:
         _record("all-to-all", out, group)
 
@@ -488,6 +493,79 @@ class _AllToAll(torch.autograd.Function):
         out = torch.empty_like(grad)
         _all_to_all(out, grad.contiguous(), ctx.group)
         return out, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over the group, then this rank's block of ``dim`` (group-rank
+    order); the backward all-gathers the gradient's blocks."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+        _reduce_scatter(out, src, group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        src = grad.movedim(ctx.dim, 0).contiguous()
+        out = src.new_empty((ctx.n * src.shape[0],) + src.shape[1:])
+        _all_gather(out, src, ctx.group)
+        return out.movedim(0, ctx.dim), None, None, None
+
+
+Ranges = Sequence[Tuple[int, int]]
+
+
+def _pieces(ranges: Ranges, lo: int, hi: int) -> list:
+    """(offset from ``lo``, length) of each part of ``ranges`` inside
+    [lo, hi), in order."""
+    out = []
+    for a, b in ranges:
+        a, b = max(a, lo), min(b, hi)
+        if a < b:
+            out.append((a - lo, b - a))
+    return out
+
+
+class _Regroup(torch.autograd.Function):
+    """An uneven all-to-all along ``dim``: group rank s holds the block s
+    of the dim (``blk`` rows of a dim split into contiguous blocks), and
+    rank t receives the rows ``wants[t]`` (sorted, disjoint global
+    ranges), in order. Each rank sends only what another asks for. The
+    backward is the transposed exchange: each rank's gradient of the
+    rows it received goes back to their owners, which sum what several
+    ranks send for one row."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, me, wants):
+        blk = x.shape[dim]
+        send = [_pieces(w, me * blk, (me + 1) * blk) for w in wants]
+        ins = [sum(m for _, m in p) for p in send]
+        outs = [sum(m for _, m in _pieces(wants[me], s * blk,
+                                         (s + 1) * blk))
+                for s in range(len(wants))]
+        src = x.movedim(dim, 0)
+        buf = torch.cat([src.narrow(0, a, m) for p in send for a, m in p])
+        out = src.new_empty((sum(outs),) + src.shape[1:])
+        _all_to_all(out, buf, group, outs, ins)
+        ctx.dim, ctx.group, ctx.blk = dim, group, blk
+        ctx.send, ctx.ins, ctx.outs = send, ins, outs
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.movedim(ctx.dim, 0).contiguous()
+        back = g.new_empty((sum(ctx.ins),) + g.shape[1:])
+        _all_to_all(back, g, ctx.group, ctx.ins, ctx.outs)
+        out = g.new_zeros((ctx.blk,) + g.shape[1:])
+        off = 0
+        for p in ctx.send:
+            for a, m in p:
+                out.narrow(0, a, m).add_(back.narrow(0, off, m))
+                off += m
+        return out.movedim(0, ctx.dim), None, None, None, None
 
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
@@ -662,6 +740,80 @@ def reduce_from(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
     row-parallel product); the backward passes the gradient through.
     ``x`` itself when ``axes`` is empty."""
     return _TpOut.apply(x, mesh.group(axes)) if axes else x
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Optional[Mesh],
+                   axes: Sequence[str], dim: int) -> torch.Tensor:
+    """The sum over the ranks of ``axes`` of their partial ``x`` (after a
+    row-parallel product), of which this rank keeps its block of
+    ``dim``; the backward all-gathers the gradient. ``x`` itself when
+    ``axes`` is empty."""
+    if not axes:
+        return x
+    return _ReduceScatter.apply(x, dim, mesh.group(axes),
+                                mesh.group_size(axes))
+
+
+def gather_alike(x: torch.Tensor, mesh: Optional[Mesh],
+                 axes: Sequence[str], dim: int) -> torch.Tensor:
+    """The blocks of ``dim`` that the ranks of ``axes`` hold, put together,
+    where those ranks then go on alike: the backward keeps the rank's
+    block of the gradient, which each of them holds whole. ``x`` itself
+    when ``axes`` is empty."""
+    if not axes:
+        return x
+    return _Gather.apply(x, dim, mesh.group(axes), mesh.group_size(axes),
+                         mesh.index(axes))
+
+
+def _merged(ranges: Ranges) -> list:
+    out: list = []
+    for a, b in ranges:
+        if out and out[-1][1] == a:
+            out[-1] = (out[-1][0], b)
+        elif a < b:
+            out.append((a, b))
+    return out
+
+
+def take_ranges(x, dim: int, wants: Callable[[int], Ranges], mesh: Mesh,
+                axes: Sequence[str]) -> torch.Tensor:
+    """The parts of a leaf that this rank computes with, where the ranks
+    of ``axes`` compute tensor-parallel: ``wants(i)`` gives the sorted,
+    disjoint ``(lo, hi)`` ranges of the whole leaf's dim ``dim`` that
+    block ``i`` over ``axes`` takes, and they come in that order. The
+    leaf is gathered over the other axes of its spec (:func:`take`); then
+
+    - split on ``dim`` over ``axes`` (contiguous blocks): each rank gets
+      its parts from their owners in one uneven all-to-all over the
+      group (none when every rank wants its own block), and in the
+      backward each owner sums what the ranks send back for its block;
+    - not split over ``axes``: the rank slices its parts, and the
+      backward sums the ranks' gradients (:func:`copy_to`), so that each
+      holds the whole leaf's."""
+    axes = tuple(axes)
+    n, me = mesh.group_size(axes), mesh.index(axes)
+    if isinstance(x, Sharded) and entry_axes(x.spec[dim]) == axes:
+        local = take(x)
+        blk = local.shape[dim]
+        every = [_merged(wants(t)) for t in range(n)]
+        if all(w == [(t * blk, (t + 1) * blk)] for t, w in enumerate(every)):
+            return local
+        return _Regroup.apply(local, dim, mesh.group(axes), me, every)
+    if isinstance(x, Sharded) and set(spec_axes(x.spec)) & set(axes):
+        raise ValueError(f"a leaf of spec {x.spec} is split over {axes} "
+                         f"on another dim than {dim}")
+    full = copy_to(take(x), mesh, axes)
+    parts = [full.narrow(dim, a, b - a) for a, b in _merged(wants(me))]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def whole_in(x, mesh: Optional[Mesh], axes: Sequence[str]) -> torch.Tensor:
+    """A leaf used whole inside the tensor-parallel compute of the ranks
+    of ``axes``, where each rank's gradient of it is a partial sum: the
+    whole leaf (:func:`whole`), whose gradient is summed over them
+    (:func:`copy_to`)."""
+    return copy_to(whole(x), mesh, axes)
 
 
 # the decode cache's sequence axis: the mesh and the axes its positions

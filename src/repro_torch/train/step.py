@@ -235,11 +235,11 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
       The model gets the blocks as ``sharding.Sharded`` leaves and gathers
       each layer's where the layer runs, again in the backward under
       remat. Under ``tp`` the gathers are over the data axes and the
-      model-split dims stay split: attention heads, ``ff`` and the
-      vocabulary compute tensor-parallel (each model rank holds the same
-      rows); the Mamba-2 and RWKV-6 layers gather theirs whole and compute
-      replicated (ROADMAP.md 7.5b). Under ``fsdp`` every gather is over
-      every axis;
+      model-split dims stay split: attention heads, ``ff``, the
+      vocabulary and the Mamba-2 and RWKV-6 heads compute tensor-parallel
+      (each model rank holds the same rows; the recurrent layers regroup
+      the columns their heads read per use, ``sharding.take_ranges``).
+      Under ``fsdp`` every gather is over every axis;
     - layout ``"zero1"`` (and resnet under any layout): once a step.
       ``zero1_mask`` (a bool tree, optional) leaves out leaves to keep
       expert-parallel: an expert weight stack keeps its ``experts`` entry
@@ -250,9 +250,11 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
       of data ranks, ``sharding.data_size`` of the layout), so that the
       sum over the data ranks is the global mean. The ranks of a tp group
       hold the same rows and the same loss; the tensor-parallel operators
-      (``sharding.copy_to``, ``reduce_from``) make each one's gradient of a
-      leaf it holds whole the whole gradient, and of a split leaf its
-      block's, so nothing is summed over ``model``: a gather over
+      (``sharding.copy_to``, ``reduce_from``, and the sums of
+      ``take_ranges`` and ``whole_in`` over the leaves a recurrent layer
+      reads in part or whole) make each one's gradient of a leaf it holds
+      whole the whole gradient, and of a split leaf its block's, so
+      nothing is summed over ``model``: a gather over
       ``model`` of a leaf used whole keeps the rank's block of its
       gradient. Over the data axes every gradient is summed: the
       reduce-scatter covers those a leaf was gathered over, an all-reduce

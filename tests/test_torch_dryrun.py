@@ -119,7 +119,7 @@ def _cells_main(mname, out_path):
             r = {"info": info, "colls": [dataclasses.astuple(c)
                                          for c in counts.collectives]}
             if moe or layout in ("tp", "fsdp"):
-                real, _ = dryrun.count_cell(
+                real = dryrun.count_cell(
                     _cfg(arch, moe), shape, _tcfg(layout, gd), mesh,
                     serve_fsdp=sf, serve_param_dtype=sdt, fake=False)
                 r["real_flops"] = real.flops
@@ -317,13 +317,11 @@ def test_small_cells(runs, cid, mname):
     assert (info["chips"], info["mesh"]) == (
         8, "x".join(map(str, mcfg.shape)))
 
-    why = info["unfaithful_because"]
-    assert info["faithful"] == (not why)
-    # only the recurrent layers under tp stay off the reference's program
-    # (ROADMAP 7.5b); the per-use gathers and the sequence-split cache
-    # (LONG, B = 1) are the reference's
-    recurrent = layout == "tp" and arch in ("zamba2-1.2b", "rwkv6-7b")
-    assert why == ([dryrun.RECURRENT_REPLICATED] if recurrent else [])
+    # every cell runs the reference's program: the per-use gathers, the
+    # tensor-parallel attention, MLP, vocabulary and recurrent layers, and
+    # the sequence-split cache (LONG, B = 1)
+    assert info["unfaithful_because"] == []
+    assert info["faithful"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -477,7 +477,7 @@ def _fake_main(world):
         for name, c, shape, layout in cells:
             tc = C.TrainConfig(optimizer=C.OptimizerConfig(name="adamw"),
                                layout=layout)
-            counts, _ = dryrun.count_cell(c, shape, tc, mesh)
+            counts = dryrun.count_cell(c, shape, tc, mesh)
             res[name] = {"flops": counts.flops, "colls": [
                 dataclasses.astuple(c) for c in counts.collectives]}
     return res
