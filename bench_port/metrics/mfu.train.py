@@ -1,0 +1,12 @@
+"""mfu.train: the window's model FLOPs over what the chips could do in it,
+in %: 3 x the closed-form forward FLOPs of each step's batch
+(``counts.fwd_flops``; the forward, and twice it for the backward, never
+the recomputed forward), summed over the steps, over (window x chips x
+the bf16 peak)."""
+
+
+def read(ctx):
+    if not ctx.units:
+        return None
+    return 100.0 * ctx.units * ctx.unit_flops / (
+        ctx.window_s * ctx.chips * ctx.counts.PEAK_FLOPS_BF16)
