@@ -33,6 +33,7 @@ from repro_torch.kernels.decode_attention.ops import decode_attend
 from repro_torch.kernels.decode_attention.ref import merge_partials
 from repro_torch.kernels.flash_attention.ops import attention as flash
 from repro_torch.models import layers as L
+from repro_torch.obs.profiling import ATTN_CORE, annotate_span
 
 
 def init_attention(gen, cfg: ModelConfig, *, dtype,
@@ -187,25 +188,26 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     refuses inputs that need a gradient); ``"torch"`` the q-chunked plain
     path, in chunks of ``cfg.attn_chunk`` queries, or one chunk when S is
     not a multiple of it. A loop over the chunks takes the place of the
-    reference's ``lax.scan``."""
-    if cfg.attn_impl == "cuda":
-        if kv_len is not None:
-            raise ValueError("attn_impl='cuda' has no kv_len mask (the "
-                             "reference's flash path has none either)")
-        return flash(q, k, v, causal=causal, window=window, impl="cuda")
-    if cfg.attn_impl != "torch":
-        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    B, S, H, Dh = q.shape
-    KV = k.shape[2]
-    qg = q.reshape(B, S, KV, H // KV, Dh)
-    C = min(cfg.attn_chunk, S)
-    if S % C != 0:
-        C = S
-    outs = [_chunk_attend(qg[:, i:i + C], k, v, i, causal=causal,
-                          window=window, kv_len=kv_len)
-            for i in range(0, S, C)]
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return out.reshape(B, S, H, Dh)
+    reference's ``lax.scan``. Either runs in the span ``attn.core``."""
+    with annotate_span(ATTN_CORE):
+        if cfg.attn_impl == "cuda":
+            if kv_len is not None:
+                raise ValueError("attn_impl='cuda' has no kv_len mask (the "
+                                 "reference's flash path has none either)")
+            return flash(q, k, v, causal=causal, window=window, impl="cuda")
+        if cfg.attn_impl != "torch":
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+        B, S, H, Dh = q.shape
+        KV = k.shape[2]
+        qg = q.reshape(B, S, KV, H // KV, Dh)
+        C = min(cfg.attn_chunk, S)
+        if S % C != 0:
+            C = S
+        outs = [_chunk_attend(qg[:, i:i + C], k, v, i, causal=causal,
+                              window=window, kv_len=kv_len)
+                for i in range(0, S, C)]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        return out.reshape(B, S, H, Dh)
 
 
 def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,

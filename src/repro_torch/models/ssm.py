@@ -37,6 +37,8 @@ from repro_torch import sharding as SH
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
+from repro_torch.obs.profiling import (SSM_MIXER, SSM_PROJ, SSM_SCAN,
+                                       annotate_span)
 
 CONV_W = 4
 Tree = Dict[str, torch.Tensor]
@@ -109,7 +111,8 @@ def _split_proj(p: Tree, x: torch.Tensor, N: int
     the reference concatenates back for the convolution (of the rank's
     heads, with ``p`` from :func:`_local`)."""
     d_in = p["norm"].shape[0]
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    with annotate_span(SSM_PROJ):
+        zxbcdt = x @ p["in_proj"].to(x.dtype)
     return (zxbcdt[..., :d_in], zxbcdt[..., d_in:2 * d_in + 2 * N],
             zxbcdt[..., 2 * d_in + 2 * N:])
 
@@ -129,7 +132,9 @@ def _gated_out(p: Tree, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
     y = y + p["D"].to(y.dtype)[:, None] * xh
     y = y.flatten(-2)
     y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps, split)
-    return SH.reduce_from(y @ p["out_proj"].to(y.dtype), *split)
+    with annotate_span(SSM_PROJ):
+        y = y @ p["out_proj"].to(y.dtype)
+    return SH.reduce_from(y, *split)
 
 
 def _ssd_chunked(xdt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
@@ -179,34 +184,38 @@ def _ssd_chunked(xdt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
 
 def apply_mamba2(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence SSD. x: (B, S, d_model) -> (B, S, d_model), on the
-    rank's heads under tensor parallelism (module docstring)."""
-    p, split = _local(p, cfg)
-    x = SH.copy_to(x, *split)
-    B, S, _ = x.shape
-    d_in, H = p["norm"].shape[0], p["A_log"].shape[0]
-    P, N = cfg.ssm_head_dim, cfg.ssm_state
-    f32 = torch.float32
+    rank's heads under tensor parallelism (module docstring). The whole
+    runs in the span ``ssm.mixer``, the scan in ``ssm.scan`` and the two
+    projections' matmuls in ``ssm.proj``."""
+    with annotate_span(SSM_MIXER):
+        p, split = _local(p, cfg)
+        x = SH.copy_to(x, *split)
+        B, S, _ = x.shape
+        d_in, H = p["norm"].shape[0], p["A_log"].shape[0]
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        f32 = torch.float32
 
-    z, xbc, dt = _split_proj(p, x, N)
-    conv_out = _causal_conv(p, xbc)
-    xin, Bc, Cc = conv_out.split([d_in, N, N], dim=-1)   # column views
+        z, xbc, dt = _split_proj(p, x, N)
+        conv_out = _causal_conv(p, xbc)
+        xin, Bc, Cc = conv_out.split([d_in, N, N], dim=-1)   # column views
 
-    xh = xin.unflatten(-1, (H, P))
-    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))             # (B,S,H)
-    a = -torch.exp(p["A_log"].to(f32))                              # (H,)
-    dA = dt * a                                                     # <= 0
-    xdt = xh * dt.to(xh.dtype)[..., None]
+        xh = xin.unflatten(-1, (H, P))
+        dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))         # (B,S,H)
+        a = -torch.exp(p["A_log"].to(f32))                          # (H,)
+        dA = dt * a                                                 # <= 0
+        xdt = xh * dt.to(xh.dtype)[..., None]
 
-    if cfg.ssm_impl == "cuda":
-        y = ssd_scan(xdt, Bc, Cc, dA)
-    elif cfg.ssm_impl == "torch":
-        Q = min(cfg.ssm_chunk, S)
-        if S % Q != 0:
-            Q = S
-        y = _ssd_chunked(xdt, Bc, Cc, dA, Q)
-    else:
-        raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
-    return _gated_out(p, y, xh, z, cfg, split)
+        with annotate_span(SSM_SCAN):
+            if cfg.ssm_impl == "cuda":
+                y = ssd_scan(xdt, Bc, Cc, dA)
+            elif cfg.ssm_impl == "torch":
+                Q = min(cfg.ssm_chunk, S)
+                if S % Q != 0:
+                    Q = S
+                y = _ssd_chunked(xdt, Bc, Cc, dA, Q)
+            else:
+                raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
+        return _gated_out(p, y, xh, z, cfg, split)
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,10 @@
 ``slo``        rolling SLO health: attainment, multi-window burn rates,
                typed alerts the autoscaler consumes.
 ``report``     self-contained HTML/text ops report.
-``profiling``  the ``torch.profiler`` bridge (``annotate_span``,
-               ``start_trace``); the only module here that imports torch,
-               so this package does not import it.
+``profiling``  the ``torch.profiler`` bridge (``annotate_span``, free
+               with no profiler running, the hot path's ``SPANS``,
+               ``start_trace``); the only module here that imports
+               torch, so this package does not import it.
 """
 from repro_torch.obs.events import (CAT_BENCH, CAT_GYM,  # noqa: F401
                                     CAT_KERNEL, CAT_POLICY, CAT_SERVE,
@@ -34,7 +35,7 @@ from repro_torch.obs.events import (CAT_BENCH, CAT_GYM,  # noqa: F401
 from repro_torch.obs.metrics import (Counter, Gauge,  # noqa: F401
                                      Histogram, MetricsRegistry)
 from repro_torch.obs.export import (metrics_stats,  # noqa: F401
-                                    perf_entry, to_chrome_trace,
+                                    to_chrome_trace,
                                     validate_chrome_trace,
                                     write_chrome_trace, write_events_csv)
 from repro_torch.obs.timeseries import (TimeSeries,  # noqa: F401

@@ -1,14 +1,15 @@
 """Device-trace bridge on ``torch.profiler`` (counterpart of
 ``repro.obs.profiling``): device traces aligned with the event log.
 
-``annotate_span(name)`` names a region for the profiler: a
-``torch.profiler.record_function`` range, plus an NVTX range when the
-process runs on the card (CUDA is initialised), so the name shows on the
-host and the device timelines alike.
-
-``TraceContext`` joins a ``Recorder`` span and that annotation, so one
-``with`` statement lands the event in the JSONL log *and* the device
-trace under the same name.
+``annotate_span(name)`` names a region for the profiler: while a
+profiler runs, a ``torch.profiler.record_function`` range, plus an NVTX
+range when the process runs on the card (CUDA is initialised), so the
+name shows on the host and the device timelines alike and shares the
+profiler's clock with the device's operations. With no profiler running
+it costs one check of the profiler's state and returns a shared null
+context, so the hot path carries its spans at no cost. ``SPANS`` names
+the spans the port's hot path opens (the train step's phases, the
+attention core, the Mamba-2 mixer's parts).
 
 ``start_trace(dir, max_steps)`` starts a ``torch.profiler.profile`` (CPU
 activity, and CUDA activity where a card is present); ``stop_trace()``
@@ -25,13 +26,25 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from typing import Any, Iterator, Optional
+from typing import ContextManager, Iterator, Optional
 
 import torch
 
-from repro_torch.obs.events import CAT_KERNEL, NULL, Recorder
-
 DEVICE_TRACE = "device.trace.json"      # stop_trace's file in the dir
+
+# the hot path's spans, each opened where its name says
+TRAIN_FORWARD = "train.forward"         # train/step.py value_and_grad
+TRAIN_BACKWARD = "train.backward"       # its autograd.grad, the sums after
+TRAIN_OPTIMIZER = "train.optimizer"     # make_train_step: cast, norm, update
+ATTN_CORE = "attn.core"                 # models/attention.py attend
+SSM_MIXER = "ssm.mixer"                 # models/ssm.py apply_mamba2
+SSM_PROJ = "ssm.proj"                   # its in_proj and out_proj matmuls
+SSM_SCAN = "ssm.scan"                   # its SSD scan
+SPANS = (TRAIN_FORWARD, TRAIN_BACKWARD, TRAIN_OPTIMIZER, ATTN_CORE,
+         SSM_MIXER, SSM_PROJ, SSM_SCAN)
+
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
 
 
 @dataclasses.dataclass
@@ -45,25 +58,21 @@ class _Trace:
 _ACTIVE: Optional[_Trace] = None
 
 
+def annotate_span(name: str) -> ContextManager[None]:
+    """Name a region for the profiler (and for NVTX on the card) while
+    one runs; a shared null context otherwise."""
+    if not _profiling():
+        return _OFF
+    return _traced(name)
+
+
 @contextlib.contextmanager
-def annotate_span(name: str) -> Iterator[None]:
-    """Name a region for the profiler (and for NVTX on the card)."""
+def _traced(name: str) -> Iterator[None]:
     with contextlib.ExitStack() as stack:
         stack.enter_context(torch.profiler.record_function(name))
         if torch.cuda.is_initialized():
             stack.enter_context(torch.cuda.nvtx.range(name))
         yield
-
-
-@contextlib.contextmanager
-def TraceContext(recorder: Optional[Recorder], name: str, *,
-                 cat: str = CAT_KERNEL, track: str = "main",
-                 **args: Any) -> Iterator[Any]:
-    """Recorder span + device annotation under one name."""
-    rec = recorder or NULL
-    with annotate_span(name):
-        with rec.span(name, cat=cat, track=track, **args) as live:
-            yield live
 
 
 def start_trace(log_dir: str, max_steps: Optional[int] = None) -> bool:

@@ -40,6 +40,8 @@ from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.models import layers as L
 from repro_torch.models.builder import Model
 from repro_torch.models.modality import vlm_split
+from repro_torch.obs.profiling import (TRAIN_BACKWARD, TRAIN_FORWARD,
+                                       TRAIN_OPTIMIZER, annotate_span)
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.optim.optimizers import clip_by_global_norm, global_norm
 from repro_torch.tree import tree_leaves, tree_map
@@ -175,23 +177,32 @@ def loss_fn(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
 
 
 def value_and_grad(loss: Callable[[Tree], Tuple[torch.Tensor, Dict]],
-                   params: Tree, dtype: Optional[torch.dtype] = None
-                   ) -> Tuple[Tree, Dict[str, torch.Tensor]]:
+                   params: Tree, dtype: Optional[torch.dtype] = None,
+                   reduce: Optional[Callable[[Tree, Dict], Tuple[Tree, Dict]]]
+                   = None) -> Tuple[Tree, Dict[str, torch.Tensor]]:
     """(gradients of ``loss(params)[0]`` as a tree like ``params``, the
     detached metrics ``loss`` returns), through leaves that share the
     masters' storage, or, given ``dtype``, through a copy of them cast to
     it (the gradients then come in ``dtype``). Each gradient is
     contiguous, as the optimizers' chunked in-place update reads it (a
-    conv weight's gradient may come back in another memory format)."""
-    leaves = tree_map(lambda p: p.detach().to(dtype or p.dtype)
-                      .requires_grad_(), params)
+    conv weight's gradient may come back in another memory format).
+    ``reduce(grads, metrics)`` (a sharded step's sums over the ranks)
+    runs in the backward's span and returns them.
+
+    The cast and ``loss`` run in the span ``train.forward``, the
+    backward (with the remat recompute) in ``train.backward``."""
     with torch.enable_grad():
-        total, metrics = loss(leaves)
-        grads = torch.autograd.grad(
-            total, [t for _, t in tree_leaves(leaves)])
-    it = iter(grads)
-    return (tree_map(lambda _: next(it).contiguous(), leaves),
-            {k: v.detach() for k, v in metrics.items()})
+        with annotate_span(TRAIN_FORWARD):
+            leaves = tree_map(lambda p: p.detach().to(dtype or p.dtype)
+                              .requires_grad_(), params)
+            total, metrics = loss(leaves)
+        with annotate_span(TRAIN_BACKWARD):
+            grads = torch.autograd.grad(
+                total, [t for _, t in tree_leaves(leaves)])
+            it = iter(grads)
+            grads = tree_map(lambda _: next(it).contiguous(), leaves)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            return reduce(grads, metrics) if reduce else (grads, metrics)
 
 
 def apply_gradients(state: TrainState, grads: Tree, metrics: Dict,
@@ -299,9 +310,10 @@ def make_train_step(model: Model, tcfg: TrainConfig, param_shardings=None,
                                for key, v in m.items()}
         else:
             grads, metrics = grads_of(state.params, batch)
-            grads = tree_map(lambda g: g.float(), grads)
-        return apply_gradients(state, grads, metrics, lr_scale, tcfg, opt,
-                               sched, norm=norm_of(grads))
+        with annotate_span(TRAIN_OPTIMIZER):
+            grads = tree_map(lambda g: g.float(), grads)  # k > 1: float32
+            return apply_gradients(state, grads, metrics, lr_scale, tcfg,
+                                   opt, sched, norm=norm_of(grads))
 
     return train_step
 
@@ -346,15 +358,17 @@ def _sharded(model: Model, tcfg: TrainConfig, shardings: Tree, zero1_mask,
             total, metrics = loss_fn(model, tree, rows, tcfg)
             return total / n_data, metrics
 
-        grads, metrics = value_and_grad(loss, params, compute_dt)
-        with torch.no_grad():
+        @torch.no_grad()
+        def reduce(grads: Tree, metrics: Dict[str, torch.Tensor]):
             grads = tree_map(
                 lambda g, axes: sharding.all_reduce_(g, mesh, axes)
                 if axes else g, grads, rest)
             keys = sorted(metrics)
             m = torch.stack([metrics[k].float() for k in keys]) / mesh.size
             sharding.all_reduce_(m, mesh, everything)
-        return grads, dict(zip(keys, m.unbind()))
+            return grads, dict(zip(keys, m.unbind()))
+
+        return value_and_grad(loss, params, compute_dt, reduce)
 
     @torch.no_grad()
     def norm_of(grads: Tree) -> torch.Tensor:

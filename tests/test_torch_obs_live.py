@@ -1,6 +1,6 @@
 """The port's observability layer against the reference's: fed the same
 event streams, observations and samples, ``to_chrome_trace``,
-``write_events_csv``, ``metrics_stats``, ``perf_entry``, the
+``write_events_csv``, ``metrics_stats``, the
 ``TimeSeriesSampler``, the ``SLOMonitor`` and the ops report (HTML and
 text, as strings) give equal outputs, and so do the export and report
 CLIs. Then the drivers: ``launch.serve`` in trace mode with a 2-replica
@@ -93,8 +93,6 @@ def test_chrome_trace_csv_and_stats_match_reference(clock, tmp_path):
         out[name] = (trace, pkg.export.validate_chrome_trace(trace),
                      open(csv).read(),
                      pkg.export.metrics_stats(rec.metrics),
-                     pkg.export.perf_entry(0.002, 0.001, flops=1e6,
-                                           bottleneck="memory"),
                      [e.to_json() for e in pkg.obs.load_events(log)])
     assert out["torch"] == out["jax"]
     with pytest.raises(ValueError, match="dur"):
@@ -355,7 +353,8 @@ def test_trace_context_and_step_bound(tmp_path):
     assert profiling.start_trace(str(tmp_path), max_steps=2)
     with pytest.raises(RuntimeError, match="already running"):
         profiling.start_trace(str(tmp_path))
-    with profiling.TraceContext(rec, "region", track="t", n=1) as live:
+    with profiling.annotate_span("region"), \
+            rec.span("region", cat=obs.CAT_KERNEL, track="t", n=1) as live:
         live["m"] = 2
         torch.ones(3).sum()
     profiling.step()
