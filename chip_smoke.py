@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths at full width with random weights from a
-seed, through the four hand-written CUDA kernels (decode attention,
-flash attention, the Mamba-2 SSD scan and the RWKV-6 WKV recurrence):
+seed, through the hand-written CUDA kernels (decode attention, flash
+attention, the Mamba-2 SSD scan and its glue, the RWKV-6 WKV recurrence):
 serving starcoder2-3b (30 layers, d_model 3072, 24 heads / 2 KV heads,
 bf16) with the dense and the paged cache and as a fleet of transient
 replicas replaying a request trace, its full-sequence forward, its training step and its training on
@@ -28,8 +28,9 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
 ``ok`` and their wall time:
 
 1. environment: torch, CUDA, the card and its power limit;
-2. build: compile the four kernels from ``src/repro_torch`` with nvcc,
-   one nvcc per source, started together, and print their ptxas lines;
+2. build: compile the five kernel sources from ``src/repro_torch`` with
+   nvcc, one nvcc per source, started together, and print their ptxas
+   lines;
 3. kernel-vs-plain: the decode kernel against its plain PyTorch version
    on the serve shape, a long cache, a window, one KV head, ragged
    lengths (0 and past the cache), zamba2's shared block (H = KV = 32,
@@ -60,6 +61,15 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
    S = 4096, 4 of the 64 heads, B and C column slices of the rank's
    384-channel conv output [x, B, C]) against its plain version and the
    same heads of the 64-head call;
+5b. glue-vs-plain: the Mamba-2 glue kernels (``conv_silu_dt``: the
+   causal conv with SiLU, dt, dA and xdt in one pass; ``gated_rms_norm``:
+   the skip-gated RMS norm) against their plain versions, bf16 and fp32,
+   inputs as column slices of one projection: the benchmark cell's shape
+   (B = 8, S = 4096, zamba2's widths), S = 3 and 4097, reduced zamba2, a
+   reduced config whose slices are not 16-byte aligned and zamba2's
+   widths with every slice 4 bytes off (narrower loads, not refused), a
+   tp rank's heads (4 of 64); outputs equal or within one bf16 ulp (16
+   float32 ulps), each wrapper launched once a call;
 6. rwkv6-vs-plain: the WKV kernel against its plain version, every shape
    with r, k, v (and o) in bf16 and in fp32: rwkv6's forward shape with
    pathological decays, with a nonzero and a zero initial state, r, k, v
@@ -189,7 +199,8 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     after ``GYM_PS_UPDATES`` pushes;
 19. hybrid-forward: ``Model.apply`` of zamba2-1.2b at B=4, S=2048
     through the kernels (38 SSD launches, all of the bf16 tensor-core
-    kernel in the profiled bf16 forward, and 6 flash) and through the
+    kernel in the profiled bf16 forward, 38 of each glue kernel, and 6
+    flash) and through the
     plain paths, in bf16 and in float32: the float32 logits must agree
     within 1e-3 x max|logit|, and the bf16 kernel path must be no further
     from them, in root mean square, than 1.5x the bf16 plain path (bf16
@@ -202,8 +213,10 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     Mamba-2 and RWKV-6 layers on the rank's heads, the cache the rank's
     block (``specs.cache_block``); logits within the bf16 gate of the
     unsharded kernel path's, tokens equal to the unsharded steps', SSD
-    38 and flash 6 times a zamba2 forward, WKV 32 times an rwkv6 forward,
-    decode attention 6 times a zamba2 cell;
+    38, ``conv_silu_dt`` 38 (a rank's conv slice), ``gated_rms_norm`` 0
+    (its mean is all-reduced over the ranks: the plain norm) and flash 6
+    times a zamba2 forward, WKV 32 times an rwkv6 forward, decode
+    attention 6 times a zamba2 cell;
 21. serve-recurrent: each family served at full width as in phase 8
     (undisturbed, then revoke + drain; migrated tokens equal), zamba2's
     decode cell running 6 decode-attention launches, and zamba2 again
@@ -276,7 +289,9 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     the SSD scan at zamba2's forward; WKV at
     rwkv6's forward in fp32 (fused views, nonzero s0) and as the model
     calls it (bf16 r, k, v and o, zero s0); both at a tp rank's head
-    block (phases 5 and 6, bf16).
+    block (phases 5 and 6, bf16); the two glue kernels at the benchmark
+    cell's shape (B = 8, S = 4096, bf16; no single PyTorch call computes
+    either).
 
 Any failure raises and exits non-zero. The last lines are the kernel
 records (JSON), the card's name and power limit, and
@@ -312,6 +327,11 @@ SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:76"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 WKV_REPLACES = "src/repro/kernels/rwkv6/kernel.py:83"
 WKV_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
+# no TPU kernel: the reference leaves the Mamba-2 glue to XLA
+GLUE_REPLACES = None
+GLUE_SOURCE = "src/repro_torch/kernels/mamba_glue/csrc/mamba_glue.cu"
+GLUE_KERNELS = ("conv_silu_dt", "gated_rms_norm")
+GLUE_ULPS = {"bfloat16": 1, "float32": 16}
 
 # name: (B, H, KV, S, D, lengths or None for full, window)
 SHAPES = {
@@ -403,6 +423,21 @@ WKV_SHAPES = {
 TP_HEADS = {"B": 16, "S": 4096, "H": 64, "M": 16, "rank": 5}
 TP_SSD_SHAPE = (16, 4096, 4, 64, 64, -0.5)
 TP_WKV_SHAPE = (16, 4096, 4, 64, False, False, -8.0)
+# name: (B, S, H, P, N, columns before the projection's z): the benchmark
+# cell zamba2-1.2b.forward-8x4096's shape first; S = 3 (inside the conv's
+# window) and 4097 (past a 64-token tile); reduced zamba2; a reduced
+# config whose column slices are not 16-byte aligned; zamba2's widths
+# with every slice 4 bytes off; a tp rank's heads at train_4k on 16 x 16
+# (4 of 64 heads: the rank's projection [z_i, x_i, B, C, dt_i])
+GLUE_SHAPES = {
+    "forward": (8, 4096, 64, 64, 64, 0),
+    "ragged_3": (1, 3, 64, 64, 64, 0),
+    "ragged_4097": (1, 4097, 64, 64, 64, 0),
+    "reduced": (2, 37, 8, 16, 16, 0),
+    "unaligned": (2, 37, 3, 12, 4, 0),
+    "offset": (2, 100, 64, 64, 64, 2),
+    "tp_rank": (16, 4096, 4, 64, 64, 0),
+}
 FORWARD_BATCH = (4, 2048)
 TRAIN_ARGS = ["--full", "--arch", "starcoder2-3b", "--steps", "3",
               "--global-batch", "2", "--seq-len", "1024"]
@@ -662,6 +697,140 @@ def ssd_bound_ms(shape, dtype):
     flops = B * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
     nbytes = (2 * B * S * H * P + 2 * B * S * N) * size + 4 * B * S * H
     return (*roof(flops, nbytes, dtype), flops, nbytes)
+
+
+def glue_inputs(torch, shape, dtype, gen):
+    """The glue kernels' inputs as the model hands them: (z, u = [x, B,
+    C], dt) column slices of one (B, S, 2 d_in + 2N + H) projection, the
+    conv's and the norm's parameters (A_log, dt_bias and gamma float32),
+    y (B, S, H, P) as the SSD scan returns it, and xh, a view of the
+    plain conv's output."""
+    from repro_torch.kernels.mamba_glue import conv_silu_dt_plain
+    B, S, H, P, N, lead = shape
+    d_in, C = H * P, H * P + 2 * N
+    dt_ = getattr(torch, dtype)
+
+    def randn(*dims, scale=1.0):
+        return scale * torch.randn(*dims, generator=gen, device="cuda")
+    proj = randn(B, S, lead + 2 * d_in + 2 * N + H).to(dt_)[..., lead:]
+    z, u, dt = (proj[..., :d_in], proj[..., d_in:d_in + C],
+                proj[..., d_in + C:])
+    p = {"conv_w": randn(4, C, scale=0.5).to(dt_),
+         "conv_b": randn(C, scale=0.1).to(dt_),
+         "dt_bias": randn(H, scale=0.5), "A_log": randn(H, scale=0.5),
+         "D": (1 + randn(H, scale=0.1)).to(dt_),
+         "norm": randn(d_in, scale=0.1)}
+    conv = (u, p["conv_w"], p["conv_b"], dt, p["dt_bias"], p["A_log"], P)
+    xh = conv_silu_dt_plain(*conv)[0][..., :d_in].unflatten(-1, (H, P))
+    norm = (randn(B, S, H, P).to(dt_), xh, z, p["D"], p["norm"], 1e-5)
+    return conv, norm
+
+
+def glue_bound_ms(shape, dtype):
+    """Least time of each glue kernel: its bytes, every input read once
+    and every output written once (the parameters too), against the
+    memory rate: ``conv_silu_dt`` reads u (C channels) and dt and writes
+    the conv output, xdt (d_in) and dA (float32); ``gated_rms_norm``
+    reads y, xh and z and writes its output (d_in each). Elementwise
+    work: no operation count bounds either. {name: (ms, "bytes",
+    bytes)}."""
+    B, S, H, P, N, _ = shape
+    size = 2 if dtype == "bfloat16" else 4
+    T, d_in = B * S, H * P
+    C = d_in + 2 * N
+    conv = T * ((2 * C + H + d_in) * size + 4 * H) + 5 * C * size + 8 * H
+    norm = T * 4 * d_in * size + H * size + 4 * d_in
+    out = {}
+    for name, nbytes in zip(GLUE_KERNELS, (conv, norm)):
+        ms, by = roof(0, nbytes, dtype)
+        out[name] = (ms, by, nbytes)
+    return out
+
+
+def ulps(torch, got, want):
+    """max |got - want| in units in the last place of ``want`` in its
+    dtype (bfloat16 or float32)."""
+    mant = 7 if want.dtype == torch.bfloat16 else 23
+    w = want.float().abs().clamp_min(torch.finfo(want.dtype).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - mant)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def glue_vs_plain(torch, gen, name, shape, dtype):
+    """Both glue kernels against their plain versions on ``shape``: every
+    output equal or within ``GLUE_ULPS`` of the dtype's ulps, each wrapper
+    launched once. Returns {kernel: max ulps}."""
+    from repro_torch.kernels.mamba_glue import (conv_silu_dt,
+                                                conv_silu_dt_plain,
+                                                gated_rms_norm,
+                                                gated_rms_norm_plain)
+    conv, norm = glue_inputs(torch, shape, dtype, gen)
+    out = {}
+    for fn, plain, args in ((conv_silu_dt, conv_silu_dt_plain, conv),
+                            (gated_rms_norm, gated_rms_norm_plain, norm)):
+        want = plain(*args)
+        n0 = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        worst_ulps, unequal = 0.0, 0
+        for g, w in pairs:
+            w = w.contiguous()
+            check(g.shape == w.shape and g.dtype == w.dtype
+                  and bool(torch.isfinite(g.float()).all()),
+                  f"{fn.__name__} on {name}/{dtype}: output malformed")
+            limit = GLUE_ULPS["float32" if g.dtype == torch.float32
+                              else dtype]
+            u = ulps(torch, g, w)
+            worst_ulps = max(worst_ulps, u)
+            unequal += int((g != w).sum())
+            check(u <= limit, f"{fn.__name__} on {name}/{dtype}: {u:.1f} "
+                              f"ulps from the plain version (limit {limit})")
+        check(fn.launches == n0 + 1, f"{fn.__name__} launched "
+                                     f"{fn.launches - n0} times in a call")
+        print(f"  {name:11s} {dtype:8s} {shape[:5]} {fn.__name__}: max "
+              f"{worst_ulps:.1f} ulps from plain, {unequal} elements not "
+              f"equal")
+        out[fn.__name__] = worst_ulps
+        del got, want
+    del conv, norm
+    return out
+
+
+def glue_timing(torch, gen, card_line):
+    """Device time of each glue kernel and its plain version at the
+    benchmark cell's shape (bf16), beside its bound (``glue_bound_ms``);
+    no single PyTorch call computes either."""
+    from repro_torch.kernels.mamba_glue import (conv_silu_dt,
+                                                conv_silu_dt_plain,
+                                                gated_rms_norm,
+                                                gated_rms_norm_plain)
+    shape = GLUE_SHAPES["forward"]
+    bounds = glue_bound_ms(shape, "bfloat16")
+    ins = [glue_inputs(torch, shape, "bfloat16", gen) for _ in range(2)]
+    rows = []
+    for i, (fn, plain) in enumerate(((conv_silu_dt, conv_silu_dt_plain),
+                                     (gated_rms_norm, gated_rms_norm_plain))):
+        ms = device_ms(torch, lambda j: fn(*ins[j][i]), 2, calls=16, reps=3)
+        plain_ms = device_ms(torch, lambda j: plain(*ins[j][i]), 2,
+                             calls=2, reps=2)
+        bms, by, nbytes = bounds[fn.__name__]
+        print(f"  {fn.__name__} forward: B={shape[0]} S={shape[1]} "
+              f"H={shape[2]} P={shape[3]} N={shape[4]} bf16: kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, no "
+              f"library call; bound {bms * 1e3:.1f} us ({by}, "
+              f"{nbytes / 1e6:.1f} MB), {bms / ms:.3f} of it, "
+              f"{nbytes / ms / 1e6:.0f} GB/s [{card_line}]")
+        rows.append({"name": fn.__name__, "shape": "forward",
+                     "dims": list(shape[:5]), "dtype": "bfloat16", "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                     "achieved_GBps": nbytes / ms / 1e6,
+                     "bound_share": bms / ms})
+    del ins
+    release(torch)
+    return rows
 
 
 def wkv_inputs(torch, shape, gen, dtype="float32"):
@@ -1489,14 +1658,16 @@ def decode_check(torch, model, params, gen, card_line):
 # ---------------------------------------------------------------------------
 
 def kernel_wrappers():
-    """The four kernel wrappers, whose ``launches`` count their launches."""
+    """The kernel wrappers, whose ``launches`` count their launches."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_glue import conv_silu_dt, gated_rms_norm
     from repro_torch.kernels.rwkv6 import rwkv6_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"decode_attention": decode_attention,
             "flash_attention": flash_attention, "ssd_scan": ssd_scan,
-            "rwkv6_scan": rwkv6_scan}
+            "rwkv6_scan": rwkv6_scan, "conv_silu_dt": conv_silu_dt,
+            "gated_rms_norm": gated_rms_norm}
 
 
 def zero_counts():
@@ -1886,10 +2057,18 @@ def tp_serve_phase(torch, model, params, card_line, forward_launches,
     bf16 gate, the greedy tokens equal to the unsharded steps', and the
     kernels' launches: ``forward_launches`` (name: count) in the forward,
     ``cell_launches`` in every cell, none of the others (counts set to 0
-    just before each sharded run and read just after)."""
+    just before each sharded run and read just after). Under tp the
+    Mamba-2 gated norm takes its plain version (its mean of squares is
+    all-reduced over the ranks), so the unsharded forward it is held to
+    takes the plain norm too: the kernel's one-ulp differences in the
+    norm's sum order grow through zamba2's 38 random layers to several
+    percent of max|logit|, and the gate holds the sharding, not the
+    kernel (phase 19 holds the kernel)."""
     from repro_torch import sharding as S
     from repro_torch.data import make_batch
+    from repro_torch.kernels.mamba_glue import gated_rms_norm_plain
     from repro_torch.launch import specs
+    from repro_torch.models import ssm
     from repro_torch.models.axes import param_axes
     from repro_torch.train.step import (make_forward, make_prefill_step,
                                         make_serve_step)
@@ -1913,7 +2092,9 @@ def tp_serve_phase(torch, model, params, card_line, forward_launches,
             out.append(tok)
         return torch.cat(out, 1), sorted(walls)[n // 2]
 
-    with torch.no_grad():
+    def plain_norm(y, xh, z, D, gamma, eps):
+        return gated_rms_norm_plain(y, xh, z, D, gamma, eps)
+    with torch.no_grad(), patched(ssm, gated_rms_norm=plain_norm):
         want, _ = model.apply(params, batch)
     want_tok, want_wall = greedy(make_prefill_step(model),
                                  make_serve_step(model), params,
@@ -2171,9 +2352,8 @@ def elastic_phase(torch, card_line):
     print(f"  evaluate_accuracy of the resumed weights: flash "
           f"{accs['cuda']:.6f}, plain {accs['torch']:.6f}; kernel launches "
           f"in the phase {counts}")
-    check(counts == {"decode_attention": 0,
-                     "flash_attention": model.cfg.num_layers,
-                     "ssd_scan": 0, "rwkv6_scan": 0},
+    check(counts == {**dict.fromkeys(kernel_wrappers(), 0),
+                     "flash_attention": model.cfg.num_layers},
           "the elastic path launched another set of kernels")
     stats = {k: out[k] for k in ("losses", "grad_norms", "step_s", "active",
                                  "lr", "peak_device_memory_bytes",
@@ -3175,6 +3355,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.mamba_glue import kernel as MG
+    from repro_torch.kernels.mamba_glue import conv_silu_dt, gated_rms_norm
     from repro_torch.kernels.rwkv6 import kernel as WK
     from repro_torch.kernels.rwkv6 import rwkv6_plain, rwkv6_scan
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -3196,6 +3378,8 @@ def main() -> int:
                   "replaces": SSD_REPLACES}
     wkv_record = {"name": "rwkv6_scan", "route": "cuda", "source": WKV_SOURCE,
                   "replaces": WKV_REPLACES}
+    glue_records = {n: {"name": n, "route": "cuda", "source": GLUE_SOURCE,
+                        "replaces": GLUE_REPLACES} for n in GLUE_KERNELS}
 
     with phase("environment"):
         print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3210,10 +3394,12 @@ def main() -> int:
         times = build_all(build, {"decode_attention": K.SOURCE,
                                   "flash_attention": FK.SOURCE,
                                   "ssd_scan": SK.SOURCE,
-                                  "rwkv6": WK.SOURCE})
-        for lib in (K, FK, SK, WK):
+                                  "rwkv6": WK.SOURCE,
+                                  "mamba_glue": MG.SOURCE})
+        for lib in (K, FK, SK, WK, MG):
             lib.library()
-        print(f"  built four kernels with nvcc in {time.monotonic() - t0:.1f}"
+        print(f"  built five kernel sources with nvcc in "
+              f"{time.monotonic() - t0:.1f}"
               f" s (in parallel: " + ", ".join(
                   f"{n} {t:.1f} s" for n, t in times.items()) +
               f") [{card_line}]")
@@ -3280,6 +3466,15 @@ def main() -> int:
                 torch, gen, "ssd", dtype, ssd_scan, ssd_scan_plain))
         ssd_record["max_abs_err"] = max_err
         release(torch)
+
+    with phase("glue-vs-plain"):
+        for (name, shape), dtype in itertools.product(
+                GLUE_SHAPES.items(), ("bfloat16", "float32")):
+            for kname, u in glue_vs_plain(torch, gen, name, shape,
+                                          dtype).items():
+                rec = glue_records[kname]
+                rec["max_ulps"] = max(rec.get("max_ulps", 0.0), u)
+            release(torch)
 
     with phase("rwkv6-vs-plain"):
         max_err = 0.0
@@ -3639,6 +3834,9 @@ def main() -> int:
                       "not zamba2-1.2b at full width")
                 n_shared = num_shared_invocations(rcfg)
                 expect = [(ssd_scan, rcfg.num_layers, "ssd_scan_tc_kernel"),
+                          (conv_silu_dt, rcfg.num_layers, "conv_silu_dt"),
+                          (gated_rms_norm, rcfg.num_layers,
+                           "gated_rms_norm"),
                           (flash_attention, n_shared, "flash_fwd"),
                           (rwkv6_scan, 0, "wkv_token_kernel")]
             else:
@@ -3647,6 +3845,8 @@ def main() -> int:
                 expect = [(rwkv6_scan, rcfg.num_layers,
                            "wkv_token_kernel"),
                           (ssd_scan, 0, "ssd_scan"),
+                          (conv_silu_dt, 0, "conv_silu_dt"),
+                          (gated_rms_norm, 0, "gated_rms_norm"),
                           (flash_attention, 0, "flash_fwd")]
             batch = make_batch(rcfg, *FORWARD_BATCH, seed=0)
             plain = with_impls(rmodel, attn_impl="torch", ssm_impl="torch",
@@ -3657,6 +3857,9 @@ def main() -> int:
                                   card_line, fp32_gate=True)
             rec = ssd_record if rcfg.family == "hybrid" else wkv_record
             rec["launches"] = stats["kernels"][rec["name"]]["launches"]
+            if rcfg.family == "hybrid":
+                for n, grec in glue_records.items():
+                    grec["launches"] = stats["kernels"][n]["launches"]
             recurrent[arch] = (rmodel, rparams, {"forward": stats})
             del batch, plain
             release(torch)
@@ -3667,7 +3870,10 @@ def main() -> int:
             rcfg = rmodel.cfg
             if rcfg.family == "hybrid":
                 n_shared = num_shared_invocations(rcfg)
+                # the conv kernel on the rank's [x_i, B, C]; the gated
+                # norm's mean is all-reduced over the ranks: plain
                 fwd = {"ssd_scan": rcfg.num_layers,
+                       "conv_silu_dt": rcfg.num_layers,
                        "flash_attention": n_shared}
                 cell = {"decode_attention": n_shared}
             else:
@@ -3676,6 +3882,9 @@ def main() -> int:
             tp_recurrent_stats[arch] = st
             rec = ssd_record if rcfg.family == "hybrid" else wkv_record
             rec["tp_launches"] = st["forward_launches"][rec["name"]]
+            if rcfg.family == "hybrid":
+                for n, grec in glue_records.items():
+                    grec["tp_launches"] = st["forward_launches"][n]
 
     with phase("serve-recurrent"):
         for arch, (rmodel, rparams, stats) in recurrent.items():
@@ -3850,6 +4059,11 @@ def main() -> int:
                 "achieved_GBps": nbytes / ms / 1e6, "bound_share": bms / ms})
             del ins
             release(torch)
+        glue_timings = glue_timing(torch, gen, card_line)
+        for row in glue_timings:
+            glue_records[row["name"]].update(
+                {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")})
         fp32_t, model_t = wkv_timings
         wkv_tp = tp_heads_timing(torch, gen, "wkv", rwkv6_scan, rwkv6_plain,
                                  card_line)
@@ -3865,6 +4079,7 @@ def main() -> int:
                           "flash_timings": flash_timings,
                           "ssd_timing": ssd_timing,
                           "wkv_timings": wkv_timings,
+                          "glue_timings": glue_timings,
                           "seq_split": seq_split_stats,
                           "tp_serve": tp_serve_stats,
                           "tp_recurrent": tp_recurrent_stats,
@@ -3881,7 +4096,7 @@ def main() -> int:
                           "encdec": encdec_stats, "card": card_line}))
 
     print(json.dumps({"kernels": [record, flash_record, ssd_record,
-                                  wkv_record]}))
+                                  wkv_record, *glue_records.values()]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

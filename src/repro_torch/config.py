@@ -13,9 +13,11 @@ Hopper kernels; the default, since the port's entry points run on the
 card) or ``"torch"`` (the plain PyTorch paths, which run anywhere):
 ``attn_impl`` (decode and flash attention; ``"torch"`` is the decode
 kernel's plain version and the q-chunked full attention), ``ssm_impl``
-(the Mamba-2 SSD scan; ``"torch"`` is the reference's chunked form) and
-``rwkv_impl`` (the RWKV-6 WKV recurrence; ``"torch"`` is the sequential
-scan). None of the kernels has a backward, as none of the reference's
+(the Mamba-2 SSD scan, and around it the mixer's glue: the causal conv
+with SiLU, dt and xdt in one kernel, the skip-gated RMS norm in another;
+``"torch"`` is the reference's chunked form and the glue's plain
+versions) and ``rwkv_impl`` (the RWKV-6 WKV recurrence; ``"torch"`` is
+the sequential scan). None of the kernels has a backward, as none of the reference's
 Pallas kernels has one, so a model that is differentiated is built with
 all three set to ``"torch"``.
 

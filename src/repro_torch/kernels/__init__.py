@@ -2,6 +2,10 @@
 
 All four of the reference's Pallas kernels are ported, as CUDA C++:
 ``decode_attention``, ``flash_attention``, ``ssd_scan`` and ``rwkv6``.
+``mamba_glue`` replaces no Pallas kernel: its two kernels fuse the
+Mamba-2 mixer's elementwise glue around the SSD scan (the causal conv
+with SiLU, dt and xdt; the skip-gated RMS norm), which the reference
+leaves to XLA; ``ssm_impl="cuda"`` runs them beside ``ssd_scan``.
 None has a backward (the reference's have none either): each wrapper
 refuses inputs that autograd would need a gradient through.
 """

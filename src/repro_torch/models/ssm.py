@@ -6,8 +6,13 @@ hand-written kernel (``repro_torch.kernels.ssd_scan``, which picks its own
 chunk length and takes any S), ``"torch"`` the reference's chunked form
 (intra-chunk quadratic term plus an inter-chunk state recurrence, in
 chunks of ``cfg.ssm_chunk``, or one chunk when S is not a multiple of it).
-Decode is the O(1) single-step state update. Decay accumulations run in
-float32.
+Around the scan, ``"cuda"`` also runs the mixer's glue as two hand-written
+kernels (``repro_torch.kernels.mamba_glue``): the causal conv with SiLU,
+dt's softplus, ``dA`` and ``xdt`` in one pass, and the skip-gated RMS
+norm in another; ``"torch"`` runs their plain versions (``mamba_glue.ref``,
+the one copy of that arithmetic), equal to them but for the norm's sum
+order. Decode is the O(1) single-step state update, on the plain glue.
+Decay accumulations run in float32.
 
 Single B/C group (G=1), conv width 4, Mamba-2 gated-RMSNorm output.
 ``A_log``, ``dt_bias`` and the gated norm's ``norm`` are stored in
@@ -20,8 +25,11 @@ its z, x and dt and the B and C columns whole (one B/C group, which
 every head reads), of the conv its x channels and B and C. Those
 leaves' contiguous blocks do not follow the heads (``in_proj``'s axis
 concatenates z, x, B, C and dt), so ``sharding.take_ranges`` regroups
-them per use. The gated norm's mean of squares is summed over the
-ranks, ``out_proj`` is row-parallel and its output summed over them.
+them per use. The conv kernel runs on the rank's [x_i, B, C] slice like
+on any other (the conv is depthwise); the gated norm's mean of squares is
+summed over the ranks between the sum of squares and the scale, so under
+tp the norm takes its plain version. ``out_proj`` is row-parallel and
+its output summed over the ranks.
 The decode cache then holds the rank's block: its heads' ``state`` and
 its conv channels [x, B, C]. Where the heads do not split, the layer
 computes on whole leaves.
@@ -35,12 +43,15 @@ import torch.nn.functional as F
 
 from repro_torch import sharding as SH
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.mamba_glue import (conv_silu_dt, conv_silu_dt_plain,
+                                            gated_rms_norm,
+                                            gated_rms_norm_plain)
+from repro_torch.kernels.mamba_glue.ref import CONV_W
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
 from repro_torch.obs.profiling import (SSM_MIXER, SSM_PROJ, SSM_SCAN,
                                        annotate_span)
 
-CONV_W = 4
 Tree = Dict[str, torch.Tensor]
 
 
@@ -117,21 +128,18 @@ def _split_proj(p: Tree, x: torch.Tensor, N: int
             zxbcdt[..., 2 * d_in + 2 * N:])
 
 
-def _causal_conv(p: Tree, u: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv width-4 over (B, S, C), then SiLU."""
-    w = p["conv_w"].to(u.dtype)
-    pad = F.pad(u, (0, 0, CONV_W - 1, 0))
-    out = sum(w[i] * pad[:, i:i + u.shape[1]] for i in range(CONV_W))
-    return F.silu(out + p["conv_b"].to(u.dtype))
-
-
 def _gated_out(p: Tree, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
-               cfg: ModelConfig, split: Split) -> torch.Tensor:
+               cfg: ModelConfig, split: Split, fused: bool = False
+               ) -> torch.Tensor:
     """Skip term, gated RMS norm and the output projection; y, xh
-    (..., H, P), z (..., d_in), of the rank's heads under ``split``."""
-    y = y + p["D"].to(y.dtype)[:, None] * xh
-    y = y.flatten(-2)
-    y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps, split)
+    (..., H, P), z (..., d_in), of the rank's heads under ``split``.
+    ``fused``: the norm through the ``gated_rms_norm`` kernel (whole
+    channels only: module docstring)."""
+    if fused:
+        y = gated_rms_norm(y, xh, z, p["D"], p["norm"], cfg.norm_eps)
+    else:
+        y = gated_rms_norm_plain(y, xh, z, p["D"], p["norm"], cfg.norm_eps,
+                                 split)
     with annotate_span(SSM_PROJ):
         y = y @ p["out_proj"].to(y.dtype)
     return SH.reduce_from(y, *split)
@@ -193,29 +201,27 @@ def apply_mamba2(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         B, S, _ = x.shape
         d_in, H = p["norm"].shape[0], p["A_log"].shape[0]
         P, N = cfg.ssm_head_dim, cfg.ssm_state
-        f32 = torch.float32
+
+        if cfg.ssm_impl not in ("cuda", "torch"):
+            raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
+        fused = cfg.ssm_impl == "cuda"
 
         z, xbc, dt = _split_proj(p, x, N)
-        conv_out = _causal_conv(p, xbc)
+        conv = conv_silu_dt if fused else conv_silu_dt_plain
+        conv_out, dA, xdt = conv(xbc, p["conv_w"], p["conv_b"], dt,
+                                 p["dt_bias"], p["A_log"], P)
         xin, Bc, Cc = conv_out.split([d_in, N, N], dim=-1)   # column views
-
         xh = xin.unflatten(-1, (H, P))
-        dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))         # (B,S,H)
-        a = -torch.exp(p["A_log"].to(f32))                          # (H,)
-        dA = dt * a                                                 # <= 0
-        xdt = xh * dt.to(xh.dtype)[..., None]
 
         with annotate_span(SSM_SCAN):
-            if cfg.ssm_impl == "cuda":
+            if fused:
                 y = ssd_scan(xdt, Bc, Cc, dA)
-            elif cfg.ssm_impl == "torch":
+            else:
                 Q = min(cfg.ssm_chunk, S)
                 if S % Q != 0:
                     Q = S
                 y = _ssd_chunked(xdt, Bc, Cc, dA, Q)
-            else:
-                raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
-        return _gated_out(p, y, xh, z, cfg, split)
+        return _gated_out(p, y, xh, z, cfg, split, fused and not split[1])
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ Imports no JAX, so it runs on a machine with only PyTorch:
 Tolerances: float32 1e-4 x (1 + |ref|) (another summation order and
 ``expf``); bfloat16 2^-6 x (|ref| + rms(ref)), two bf16 ulps: both
 outputs are rounded to bf16 from float32 values that agree to ~1e-6.
+The Mamba-2 glue kernels round where their plain versions do: one bf16
+ulp, 16 float32 ulps (``_assert_ulps``).
 """
 import pytest
 
@@ -368,3 +370,135 @@ def test_rwkv6_kernel_refuses_bad_inputs():
         rwkv6_scan(r, k, v, w, u.clone().requires_grad_(), s0)
     with torch.no_grad():
         rwkv6_scan(r, k, v, w, u.clone().requires_grad_(), s0)
+
+
+# --- Mamba-2 glue -------------------------------------------------------------
+
+# B, S, H, P, N, columns before the projection's z: zamba2-1.2b's forward
+# shape (the benchmark cell's) first; ragged S (S < 4: the conv's window
+# in the zero padding; 4097: one token past a tile); reduced zamba2; a
+# reduced config whose slices are not 16-byte aligned (u at 72 bytes, an
+# odd row stride) and zamba2's widths with every slice 4 bytes off: the
+# wrappers take narrower loads there
+GLUE_CASES = [
+    (8, 4096, 64, 64, 64, 0),
+    (1, 3, 64, 64, 64, 0),
+    (1, 4097, 64, 64, 64, 0),
+    (2, 37, 8, 16, 16, 0),
+    (2, 37, 3, 12, 4, 0),
+    (2, 100, 64, 64, 64, 2),
+]
+
+
+def _glue_inputs(case, dtype, dev, seed=0):
+    """(z, u = [x, B, C], dt) as strided column slices of one (B, S,
+    2 d_in + 2N + H) projection, the conv's and the norm's parameters
+    (A_log, dt_bias and the norm's gamma float32), and y (B, S, H, P)."""
+    B, S, H, P, N, lead = case
+    d_in, C = H * P, H * P + 2 * N
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+    proj = randn(B, S, lead + 2 * d_in + 2 * N + H).to(dtype)[..., lead:]
+    z, u, dt = (proj[..., :d_in], proj[..., d_in:d_in + C],
+                proj[..., d_in + C:])
+    p = {"conv_w": randn(4, C, scale=0.5).to(dtype),
+         "conv_b": randn(C, scale=0.1).to(dtype),
+         "dt_bias": randn(H, scale=0.5), "A_log": randn(H, scale=0.5),
+         "D": (1 + randn(H, scale=0.1)).to(dtype),
+         "norm": randn(d_in, scale=0.1)}
+    return z, u, dt, p, randn(B, S, H, P).to(dtype)
+
+
+def _assert_ulps(got, want, dtype):
+    """|got - want| within the kernels' tolerance, in units in the last
+    place of ``want`` in ``dtype``: one bf16 ulp (where exp, log1p or the
+    float32 sum of squares' order round differently, the outputs rounded
+    to bf16 may land one ulp apart; elsewhere they are equal); float32
+    outputs 16 ulps (the sum of squares' order moves the norm's scale by
+    a few float32 ulps)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    w = want.float().abs()
+    mant, n = (7, 1) if dtype == torch.bfloat16 else (23, 16)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        w.clamp_min(torch.finfo(dtype).tiny))) - mant)
+    err = (got.float() - want.float()).abs() / ulp
+    assert torch.isfinite(got.float()).all()
+    assert float(err.max()) <= n, (
+        f"max {float(err.max()):.1f} ulps, {int((err > n).sum())} above "
+        f"{n}, {int((err > 0).sum())} of {err.numel()} not equal")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", GLUE_CASES)
+def test_conv_silu_dt_kernel_matches_plain(case, dtype):
+    from repro_torch.kernels.mamba_glue import (conv_silu_dt,
+                                                conv_silu_dt_plain)
+    dev = _cuda()
+    z, u, dt, p, _ = _glue_inputs(case, dtype, dev)
+    args = (u, p["conv_w"], p["conv_b"], dt, p["dt_bias"], p["A_log"],
+            case[3])
+    want = conv_silu_dt_plain(*args)
+    before = conv_silu_dt.launches
+    got = conv_silu_dt(*args)
+    torch.cuda.synchronize()
+    assert conv_silu_dt.launches == before + 1
+    for g_, w_ in zip(got, want):
+        _assert_ulps(g_, w_.contiguous(),
+                     torch.float32 if g_.dtype == torch.float32 else dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", GLUE_CASES)
+def test_gated_rms_norm_kernel_matches_plain(case, dtype):
+    from repro_torch.kernels.mamba_glue import (conv_silu_dt_plain,
+                                                gated_rms_norm,
+                                                gated_rms_norm_plain)
+    dev = _cuda()
+    H, P = case[2], case[3]
+    z, u, dt, p, y = _glue_inputs(case, dtype, dev)
+    conv_out = conv_silu_dt_plain(u, p["conv_w"], p["conv_b"], dt,
+                                  p["dt_bias"], p["A_log"], P)[0]
+    xh = conv_out[..., :H * P].unflatten(-1, (H, P))     # a view, as model
+    args = (y, xh, z, p["D"], p["norm"], 1e-5)
+    want = gated_rms_norm_plain(*args)
+    before = gated_rms_norm.launches
+    got = gated_rms_norm(*args)
+    torch.cuda.synchronize()
+    assert gated_rms_norm.launches == before + 1
+    _assert_ulps(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_mamba_glue_kernels_refuse_bad_inputs():
+    from repro_torch.kernels.mamba_glue import conv_silu_dt, gated_rms_norm
+    dev = _cuda()
+    H, P = 8, 16
+    z, u, dt, p, y = _glue_inputs((2, 37, H, P, 16, 0), torch.bfloat16, dev)
+    conv = (p["conv_w"], p["conv_b"], dt, p["dt_bias"], p["A_log"], P)
+    xh = u[..., :H * P].unflatten(-1, (H, P))
+    norm = (p["D"], p["norm"], 1e-5)
+    with pytest.raises(ValueError, match="float32 or"):
+        conv_silu_dt(u.half(), *conv)
+    with pytest.raises(ValueError, match="expected"):
+        conv_silu_dt(u, p["conv_w"], p["conv_b"], dt.float(), *conv[3:])
+    with pytest.raises(ValueError, match="is on cpu"):
+        conv_silu_dt(u, p["conv_w"].cpu(), *conv[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_silu_dt(u.transpose(1, 2).contiguous().transpose(1, 2), *conv)
+    with pytest.raises(ValueError, match="contiguous"):
+        gated_rms_norm(y.transpose(2, 3).contiguous().transpose(2, 3), xh, z,
+                       *norm)
+    with pytest.raises(ValueError, match="for y"):
+        gated_rms_norm(y, xh, z[..., :-1], *norm)
+    w = p["conv_w"].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        conv_silu_dt(u, w, *conv[1:])
+    with pytest.raises(RuntimeError, match="has no backward"):
+        gated_rms_norm(y, xh, z, p["D"], p["norm"].clone().requires_grad_(),
+                       1e-5)
+    with torch.no_grad():
+        conv_silu_dt(u, w, *conv[1:])
