@@ -19,11 +19,19 @@ move them:
   rates, as ``repro_torch/roofline.py`` holds them.
 
 A configuration is a mapping with the port's ``ModelConfig`` field names
-(the ``model`` object of a file under ``configs/``).
+(the ``model`` object of a file under ``configs/``). The forward FLOPs of
+a family this file does not count come from ``flops/<family>.py``, found
+by name: its ``fwd_flops(model, batch, seq, kv_len)`` gives the whole
+forward, unembedding included, as ``fwd_flops`` here does.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Tuple
+import importlib.util
+from pathlib import Path
+from typing import Any, Callable, Mapping, Optional, Tuple
+
+FLOPS = Path(__file__).resolve().parent / "flops"
+FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
 
 PEAK_FLOPS_BF16 = 989e12          # tensor cores, bf16 / fp16
 PEAK_FLOPS_FP32 = 67e12           # float32 outside the tensor cores
@@ -142,6 +150,8 @@ def fwd_flops(model: Mapping[str, Any], batch: int, seq: int, *,
     kv = float(kv_len if kv_len is not None else seq)
     full_seq = seq if kv_len is None else None
     fam = c.family
+    if fam not in FAMILIES:
+        return family_flops(fam)(model, batch, seq, kv_len)
     total = 2 * T * c.d_model * c.vocab_size             # unembed
 
     if fam in ("dense", "vlm"):
@@ -179,9 +189,22 @@ def fwd_flops(model: Mapping[str, Any], batch: int, seq: int, *,
             total += _mlp_flops(c, Tdec)
         total -= 2 * T * c.d_model * c.vocab_size
         total += 2 * Tdec * c.d_model * c.vocab_size
-    else:
-        raise ValueError(f"unknown family {fam!r}")
     return total
+
+
+def family_flops(family: str) -> Callable[..., float]:
+    """``fwd_flops`` of ``flops/<family>.py``, for a family this file
+    does not count."""
+    path = FLOPS / f"{family}.py"
+    if not path.is_file():
+        raise ValueError(f"no FLOP count for family {family!r}: add "
+                         f"bench_port/flops/{family}.py with "
+                         f"fwd_flops(model, batch, seq, kv_len)")
+    spec = importlib.util.spec_from_file_location(
+        f"bench_port_flops_{family}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.fwd_flops
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,20 @@ intervals inside the window; every stretch of the window outside that
 union is an idle gap, named by what the host was doing when it launched
 the operation that ended the gap: the two innermost host operations
 open on the launching thread at that moment.
+
+The summary also carries the program's spans (``Spans``): every host
+range of the window whose name has the program's span form, lower-case
+dotted words such as ``train.forward`` (``SPAN``), other than the
+benchmark's own ``bench.*``, so a span the program opens later is
+reduced with no edit here. For each name it gives the instances that
+start inside the window and their host seconds (clipped to it), and, by
+the set of names open at each launch, the device seconds of the
+kernels, copies and fills (clipped to the window) and of the idle gaps
+that launch ended. A launch is inside an instance when its runtime
+call, found by the operation's correlation id, starts within the
+instance's interval on ANY thread: the backward runs on autograd's
+thread while the main thread sits inside ``train.backward``. A launch
+inside nested spans counts for each of them.
 """
 from __future__ import annotations
 
@@ -17,15 +31,47 @@ import bisect
 import collections
 import dataclasses
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, FrozenSet, Iterable, List, Optional, Tuple
 
 import torch
 
 WINDOW = "bench.window"
+OWN = "bench."                               # the benchmark's annotations
+SPAN = re.compile(r"^[a-z][a-z0-9_]*(\.[a-z][a-z0-9_]*)+$")
+OUTSIDE: FrozenSet[str] = frozenset()
 DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_ACTIVITIES = ("cpu_op", "user_annotation")
 RUNTIME = re.compile(r"^cu(da)?[A-Z]")       # cudaLaunchKernel, cuLaunchKernel
 TOP = 10
+
+
+def is_span(name: str) -> bool:
+    """Is ``name`` a span of the program: the span form, not ``bench.*``."""
+    return SPAN.match(name) is not None and not name.startswith(OWN)
+
+
+@dataclasses.dataclass
+class Spans:
+    """What the window's spans held (module docstring)."""
+    instances: Dict[str, int]
+    host_s: Dict[str, float]
+    device_s: Dict[FrozenSet[str], float]    # by the names open at launch
+    idle_s: Dict[FrozenSet[str], float]      # the same, of the gaps
+
+    def device(self, *names: str, outside: Iterable[str] = ()) -> float:
+        """Device seconds launched inside all of ``names`` and none of
+        ``outside``."""
+        return _sum(self.device_s, names, outside)
+
+    def idle(self, *names: str, outside: Iterable[str] = ()) -> float:
+        """Idle seconds ended by such launches."""
+        return _sum(self.idle_s, names, outside)
+
+
+def _sum(by_set, names, outside) -> float:
+    want, skip = set(names), set(outside)
+    return sum(s for k, s in by_set.items()
+               if want <= k and not (skip & k))
 
 
 @dataclasses.dataclass
@@ -36,6 +82,7 @@ class Summary:
     kernels: List[Tuple[str, float]]          # (name, seconds), in order
     device_ops: List[Tuple[str, float]]       # top by total seconds
     idle_gaps: List[Tuple[str, float]]        # top by total seconds
+    spans: Optional[Spans] = None             # the program's spans
 
     def breakdown(self) -> Dict[str, list]:
         return {"device_ops": [list(x) for x in self.device_ops],
@@ -156,7 +203,55 @@ def summarise(events) -> Summary:
     top = lambda c: sorted(c.items(), key=lambda kv: -kv[1])[:TOP]  # noqa
     return Summary(window_s=(hi - lo) * 1e-9, busy_s=busy * 1e-9,
                    kernels=kernels, device_ops=top(by_name),
-                   idle_gaps=top(idle))
+                   idle_gaps=top(idle),
+                   spans=_spans(lo, hi, dev, gaps, runtime, host))
+
+
+class _Intervals:
+    """Is a time inside any of a name's instances: their starts in order
+    and the latest end up to each."""
+
+    def __init__(self, spans):
+        spans = sorted(spans)
+        self.starts = [s for s, _ in spans]
+        self.ends, top = [], None
+        for _, e in spans:
+            top = e if top is None else max(top, e)
+            self.ends.append(top)
+
+    def __contains__(self, t: int) -> bool:
+        k = bisect.bisect_right(self.starts, t)
+        return k > 0 and self.ends[k - 1] >= t
+
+
+def _spans(lo, hi, dev, gaps, runtime, host) -> Spans:
+    """The program's spans (module docstring), from ``summarise``'s
+    device operations inside the window, in order, its gaps, launches
+    and host operations."""
+    inside = collections.defaultdict(list)
+    for ops in host.values():
+        for s, e, name in ops:
+            if lo <= s < hi and is_span(name):
+                inside[name].append((s, e))
+    where = {n: _Intervals(v) for n, v in inside.items()}
+
+    def open_at(d) -> FrozenSet[str]:
+        launch = runtime.get(d[3]) if d is not None else None
+        if launch is None:
+            return OUTSIDE
+        return frozenset(n for n, iv in where.items() if launch[1] in iv)
+
+    device_s: Dict[FrozenSet[str], float] = collections.Counter()
+    idle_s: Dict[FrozenSet[str], float] = collections.Counter()
+    for d in dev:
+        device_s[open_at(d)] += (min(d[1], hi) - max(d[0], lo)) * 1e-9
+    for ns, d in gaps:
+        idle_s[open_at(d)] += ns * 1e-9
+    return Spans(
+        instances={n: len(v) for n, v in inside.items()},
+        host_s={n: sum(min(e, hi) - s for s, e in v) * 1e-9
+                for n, v in inside.items()},
+        device_s=dict(device_s), idle_s=dict(idle_s))
 
 
 def _attribute(gaps, runtime, host):

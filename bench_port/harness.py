@@ -8,7 +8,8 @@ metric sits in a file of its own, found by name:
 - the cell (``workloads`` in ``BENCHMARK.json``) names its configuration
   and its traffic mix;
 - ``configs/<config>.json``: the model's settings under ``model`` (the
-  program's ``ModelConfig`` fields), its source, cuts and assumptions;
+  program's ``ModelConfig`` fields), its source, cuts and assumptions,
+  and under ``tiny`` the ``model`` keys the CPU tests cut;
 - ``traffic/<traffic>.json``: the ``mode`` and its parameters;
 - ``modes/<mode>.py``: ``run(cell) -> Outcome``, set-up, window and the
   comparison with the reference;

@@ -17,7 +17,7 @@ program's weights freed, the reference computes every row of that
 forward in float32 and the worst position's relative gap of the logits
 is compared (``harness.logits_gap``).
 
-Traffic parameters: ``batch``, ``seq_len``, ``tokens``.
+Traffic parameters: ``batch``, ``seq_len``.
 """
 from __future__ import annotations
 

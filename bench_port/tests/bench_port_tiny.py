@@ -1,22 +1,14 @@
 """Small sizes of the benchmark's cells for the CPU tests: the cells'
 own files with the widths and lengths cut, and the program's dtype
 float32, so that it agrees with the float32 reference to round-off and a
-planted fault stands out (the tests only)."""
+planted fault stands out (the tests only). Each configuration's file
+holds its cut sizes under ``tiny``: the ``model`` keys they replace."""
 from __future__ import annotations
 
 import copy
 
 from bench_port import harness
 
-WIDTHS = {
-    "starcoder2-3b": dict(num_layers=2, d_model=64, num_heads=4,
-                          num_kv_heads=2, head_dim=16, d_ff=256,
-                          vocab_size=512, sliding_window=24),
-    "zamba2-1.2b": dict(num_layers=5, d_model=64, num_heads=4,
-                        num_kv_heads=4, head_dim=16, d_ff=128,
-                        vocab_size=512, ssm_state=16, ssm_heads=8,
-                        ssm_head_dim=16, ssm_chunk=16, shared_attn_every=2),
-}
 SEED = 2 ** 31 + 12345
 
 
@@ -29,7 +21,7 @@ def files(name: str):
     w = harness.cell_entry(harness.benchmark(), name)
     cfg = copy.deepcopy(harness.load_json(
         harness.ROOT / "configs" / f"{w['config']}.json"))
-    cfg["model"].update(WIDTHS[w["config"]], dtype="float32")
+    cfg["model"].update(cfg["tiny"], dtype="float32")
     tr = harness.load_json(harness.ROOT / "traffic" / f"{w['traffic']}.json")
     return cfg, dict(tr, batch=2 * w["chips"], seq_len=64)
 

@@ -1,4 +1,5 @@
-"""The copied closed forms against cases worked by hand."""
+"""The copied closed forms against cases worked by hand, and a family's
+FLOPs found by name."""
 import pytest
 
 from bench_port import counts
@@ -73,3 +74,21 @@ def test_hybrid_counts_shared_block():
         + counts._mlp_flops(counts._Cfg(m), 3)
     assert counts.fwd_flops(m, 1, 3) - counts.fwd_flops(no_attn, 1, 3) \
         == pytest.approx(2 * one)
+
+
+def test_fwd_flops_of_a_family_found_by_name(tmp_path, monkeypatch):
+    """A family the closed forms lack is counted by flops/<family>.py."""
+    (tmp_path / "tri_mix.py").write_text(
+        "def fwd_flops(model, batch, seq, kv_len):\n"
+        "    return model['num_layers'] * batch * seq * (kv_len or 7)\n")
+    monkeypatch.setattr(counts, "FLOPS", tmp_path)
+    m = {"family": "tri_mix", "num_layers": 3}
+    assert counts.fwd_flops(m, 2, 5) == 3 * 2 * 5 * 7
+    assert counts.fwd_flops(m, 2, 5, kv_len=11) == 3 * 2 * 5 * 11
+    # the families counted here are not looked up
+    assert counts.fwd_flops(TINY, 2, 3) == 480 + 576 + 192 + 768
+
+
+def test_fwd_flops_of_an_unknown_family_names_the_file():
+    with pytest.raises(ValueError, match=r"bench_port/flops/no_such\.py"):
+        counts.fwd_flops({"family": "no_such"}, 1, 4)

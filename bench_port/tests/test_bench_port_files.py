@@ -7,13 +7,23 @@ import pytest
 
 from bench_port import harness
 
+import bench_port_tiny as tiny
+
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 BENCH = harness.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
 WIDTHS = re.compile(r"(hidden|intermediate|latent|state|projection|head|"
-                    r"expan|_dim$|_rank$|d_model|d_ff|per_tok)")
+                    r"expan|_dim$|_rank$|d_model|d_ff|_ff$|per_tok|top_k|"
+                    r"shared_experts)")
+
+
+def cuts_only(reduced) -> bool:
+    """``reduced`` lists cuts (depth, experts held, a vocabulary slice),
+    never a width, a head size, an expansion or the experts a token
+    takes."""
+    return not any(WIDTHS.search(k) for k in reduced)
 
 
 def test_top_level_keys():
@@ -50,8 +60,8 @@ def test_cell_files_load_by_name(name):
     cfg = harness.load_json(harness.ROOT / "configs" / f"{w['config']}.json")
     conf = next(c for c in BENCH["configs"] if c["name"] == w["config"])
     assert conf["file"] == f"bench_port/configs/{w['config']}.json"
-    assert cfg["reduced"] == conf["reduced"] == []
-    assert not any(WIDTHS.search(k) for k in conf["reduced"])
+    assert cfg["reduced"] == conf["reduced"]
+    assert cuts_only(conf["reduced"])
     tr = harness.load_json(harness.ROOT / "traffic" / f"{w['traffic']}.json")
     assert (harness.ROOT / "modes" / f"{tr['mode']}.py").exists()
     assert w["chips"] in (1, 4)
@@ -96,3 +106,28 @@ def test_roofline_symbols():
 def test_json_files_parse():
     for path in harness.ROOT.rglob("*.json"):
         json.loads(path.read_text())
+
+
+@pytest.mark.parametrize("reduced,ok", [
+    ([], True), (["num_layers"], True), (["num_layers", "num_experts"], True),
+    (["vocab_size"], True), (["d_ff"], False),
+    (["num_layers", "d_model"], False),
+    (["head_dim"], False), (["ssm_state"], False), (["ssm_expand"], False),
+    (["kv_lora_rank"], False), (["top_k"], False), (["dense_ff"], False),
+    (["num_shared_experts"], False), (["num_experts_per_tok"], False)])
+def test_reduced_lists_cuts_not_widths(reduced, ok):
+    assert cuts_only(reduced) is ok
+
+
+@pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
+def test_config_holds_its_tiny_sizes(conf):
+    """Each configuration's file holds the CPU tests' sizes under
+    ``tiny``, keys of its ``model``, and the tests take them from there."""
+    cfg = harness.load_json(harness.CHECKOUT / conf["file"])
+    assert cfg["tiny"] and set(cfg["tiny"]) <= set(cfg["model"])
+    for name in (w["name"] for w in BENCH["workloads"]
+                 if w["config"] == conf["name"]):
+        got, _ = tiny.files(name)
+        assert got["model"] == dict(cfg["model"], **cfg["tiny"],
+                                    dtype="float32")
+        assert got["tiny"] == cfg["tiny"]

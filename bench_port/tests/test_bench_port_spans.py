@@ -1,7 +1,10 @@
 """The program's spans in a traced window: the reduction on a hand-made
 trace (nesting, a launch on another thread, the window's edges, idle by
-span), the readers on a hand-made summary, the spans a tiny cell of each
-mode opens, and ``annotate_span`` free with no profiler running."""
+span, which names count as spans), the summary that carries it, the
+readers on a hand-made summary, the spans a tiny cell of each mode
+opens, and ``annotate_span`` free with no profiler running."""
+import dataclasses
+import pickle
 import types
 
 import pytest
@@ -37,9 +40,13 @@ def _events(cls, rows):
     return [cls(*r) for r in rows]
 
 
+def _reduce(events):
+    return devtrace.summarise(events).spans
+
+
 @pytest.mark.parametrize("cls", [Ev, WithActivity])
 def test_reduction(cls):
-    sp = spans.reduce(_events(cls, EVENTS + SPAN_EVENTS))
+    sp = _reduce(_events(cls, EVENTS + SPAN_EVENTS))
     assert sp.instances == {"train.forward": 1, "attn.core": 2,
                             "train.backward": 1, "train.optimizer": 1}
     assert sp.host_s["attn.core"] == pytest.approx(40 * NS)
@@ -52,7 +59,7 @@ def test_reduction(cls):
     assert sp.device(bwd) == pytest.approx(180 * NS)
     assert sp.device(bwd, outside=(attn,)) == pytest.approx(100 * NS)
     assert sp.device(opt) == pytest.approx(10 * NS)          # clipped
-    assert sp.device_s[spans.OUTSIDE] == pytest.approx(150 * NS)
+    assert sp.device_s[devtrace.OUTSIDE] == pytest.approx(150 * NS)
     assert sum(sp.device_s.values()) == pytest.approx(640 * NS)
     # idle: 0-100 ended by the gemm, 400-600 by add, 800-820 by the
     # backward's kernel, 900-990 by the optimizer's
@@ -60,38 +67,73 @@ def test_reduction(cls):
     assert sp.idle(bwd) == pytest.approx(220 * NS)
     assert sp.idle(attn, bwd) == pytest.approx(20 * NS)
     assert sp.idle(opt) == pytest.approx(90 * NS)
-    assert spans.OUTSIDE not in sp.idle_s
+    assert devtrace.OUTSIDE not in sp.idle_s
 
 
 @pytest.mark.parametrize("cls", [Ev, WithActivity])
-def test_summary_unchanged_by_spans(cls, monkeypatch):
-    """The device's fields do not move when the trace holds spans, and
-    the attached reduction leaves every field as the plain summary
-    has it."""
+def test_summary_unchanged_by_spans(cls):
+    """The spans the summary now carries leave its other fields as they
+    were: the device's copies of the annotations are no kernels, and the
+    spans' kernels add only their own time, launches and gaps."""
     plain = devtrace.summarise(_events(cls, EVENTS))
-    rows = EVENTS + SPAN_EVENTS
-    with_spans = devtrace.summarise(_events(cls, rows))
-    monkeypatch.setattr(devtrace, "summarise", devtrace.summarise)
-    spans.attach()
-    spans.attach()                                   # once, not twice
-    attached = devtrace.summarise(_events(cls, rows))
-    for f in ("window_s", "busy_s", "kernels", "device_ops", "idle_gaps"):
-        assert getattr(attached, f) == getattr(with_spans, f)
-    assert attached.breakdown() == with_spans.breakdown()
-    assert attached.spans == spans.reduce(_events(cls, rows))
-    # the device's copies of the annotations are no kernels
-    assert with_spans.window_s == plain.window_s
-    assert with_spans.busy_s == plain.busy_s + 90 * NS
+    with_spans = devtrace.summarise(_events(cls, EVENTS + SPAN_EVENTS))
+    assert with_spans.window_s == plain.window_s == pytest.approx(1000 * NS)
+    assert with_spans.busy_s == pytest.approx(plain.busy_s + 90 * NS)
     assert [k for k, _ in with_spans.kernels] == \
         [k for k, _ in plain.kernels] + ["bwd_kernel", "adam_kernel"]
+    assert dict(with_spans.device_ops) == pytest.approx(dict(
+        plain.device_ops, bwd_kernel=80 * NS, adam_kernel=110 * NS))
+    # a gap is named by the two innermost host ranges open on the
+    # launching thread, spans among them, as before
+    assert dict(with_spans.idle_gaps) == pytest.approx({
+        "aten::mm > attn.core": 100 * NS,
+        "train.backward > aten::add": 200 * NS,
+        "attn.core": 20 * NS, "train.optimizer": 90 * NS})
+    assert with_spans.breakdown() == {
+        "device_ops": [list(x) for x in with_spans.device_ops],
+        "idle_gaps": [list(x) for x in with_spans.idle_gaps]}
+    assert plain.spans.instances == {} and with_spans.spans.instances
+
+
+@pytest.mark.parametrize("name,is_span", [
+    ("serve.decode", True), ("moe.route_experts", True),
+    ("train.forward", True), ("kv2.page.copy", True),
+    ("aten::mm", False), ("cudaLaunchKernel", False),
+    ("autograd::engine::evaluate_function: MmBackward0", False),
+    ("nccl:all_reduce", False), ("ProfilerStep#3", False),
+    ("Optimizer.step#AdamW.step", False), ("bench.feed", False),
+    ("bench.forward", False), ("forward", False), ("Train.forward", False)])
+def test_span_form(name, is_span):
+    """A range of the span form counts, whatever its name, and nothing
+    else does: a span the program opens later is reduced with no edit."""
+    assert devtrace.is_span(name) is is_span
+    rows = EVENTS + [(name, CPU, 10, 60, "user_annotation"),
+                     (name, CPU, 12, 58, "cpu_op", 0, 2)]
+    sp = _reduce(_events(WithActivity, rows))
+    assert sp.instances == ({name: 2} if is_span else {})
+    if is_span:
+        assert sp.device(name) == pytest.approx(300 * NS)   # the gemm
+        assert sp.host_s[name] == pytest.approx(96 * NS)
+
+
+def test_spans_survive_replace_and_pickle():
+    """A rank's summary travels pickled and rank 0's is rebuilt with
+    ``dataclasses.replace`` (``modes/train_sharded.py``): its spans stay."""
+    s = devtrace.summarise(_events(WithActivity, EVENTS + SPAN_EVENTS))
+    assert s.spans.instances
+    moved = dataclasses.replace(s, busy_s=1.0)
+    assert moved.spans == s.spans and moved.busy_s == 1.0
+    back = pickle.loads(pickle.dumps(moved))
+    assert back == moved and back.spans.device(spans.TRAIN_BACKWARD) == \
+        s.spans.device(spans.TRAIN_BACKWARD)
 
 
 def test_reduction_without_spans():
-    sp = spans.reduce(_events(Ev, EVENTS))
+    sp = _reduce(_events(Ev, EVENTS))
     assert sp.instances == {} and sp.host_s == {}
-    assert sp.device_s == {spans.OUTSIDE: pytest.approx(550 * NS)}
+    assert sp.device_s == {devtrace.OUTSIDE: pytest.approx(550 * NS)}
     with pytest.raises(RuntimeError, match="bench.window"):
-        spans.reduce(_events(Ev, EVENTS[2:]))
+        _reduce(_events(Ev, EVENTS[2:]))
 
 
 ZAMBA = {"family": "hybrid", "num_layers": 38, "shared_attn_every": 6,
@@ -110,7 +152,7 @@ def _ctx(sp, units=2, model=ZAMBA, traffic=FORWARD):
 
 
 def _spans(instances, device_s):
-    return spans.Spans(instances=instances,
+    return devtrace.Spans(instances=instances,
                        host_s={k: 1.0 for k in instances},
                        device_s=device_s, idle_s={})
 
@@ -169,8 +211,11 @@ def test_readers_read_nothing_without_spans(name):
 
 
 def test_span_names_are_the_programs():
-    assert spans.NAMES == profiling.SPANS
+    """Every name a reader reads is one the program opens, and every
+    span the program opens has the form the reduction takes."""
+    assert set(spans.NAMES) <= set(profiling.SPANS)
     assert len(set(spans.NAMES)) == len(spans.NAMES)
+    assert all(devtrace.is_span(n) for n in profiling.SPANS)
 
 
 def test_annotate_span_off_enters_nothing(monkeypatch):
@@ -216,8 +261,7 @@ def _expected(cfg, tr, units):
 
 
 @pytest.mark.parametrize("name", tiny.cells())
-def test_tiny_cell_spans(name, monkeypatch):
-    monkeypatch.setattr(devtrace, "summarise", devtrace.summarise)
+def test_tiny_cell_spans(name):
     cfg, tr = tiny.files(name)
     line = _figures_tool().run(name, tiny.SEED, 0.2, "cpu", cfg, tr)
     got = {n: s["instances"] for n, s in line["spans"].items()
