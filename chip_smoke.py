@@ -207,7 +207,12 @@ routes) on a one-rank NCCL mesh. In phases that each print their name,
     rounding alone moves these random models' logits by several percent
     of max|logit|); a profiled device breakdown;
 20. rwkv-forward: the same for rwkv6-7b (32 WKV launches), the plain
-    path being the sequential scan, at the same B=4, S=2048;
+    path being the sequential scan, at the same B=4, S=2048, with the
+    reference's block (``config.reference_block``; the recurrent phases
+    below reuse that model): random full-width Finch amplifies float32
+    rounding far past the 1e-3 gate (kernel against plain 0.58 of
+    max|logit|), so its full-width forward is held to the float32
+    reference by the benchmark cell ``rwkv6-7b.forward-4x4096``;
 20b. tp-recurrent: phase 12b's sharded programs for both recurrent
     models (bf16, the kernel paths) on a one-rank NCCL mesh: their
     Mamba-2 and RWKV-6 layers on the rank's heads, the cache the rank's
@@ -404,6 +409,8 @@ SSD_SHAPES = {
 WKV_SHAPES = {
     "forward": (4, 2048, 64, 64, True, True, -8.0),    # rwkv6-7b
     "model": (4, 2048, 64, 64, False, False, -8.0),    # as the model calls
+    # rwkv6-7b.forward-4x4096's call: 4 rows of the published context
+    "cell": (4, 4096, 64, 64, False, False, -8.0),
     "zero_s0": (4, 2048, 64, 64, False, True, -8.0),
     "ragged": (2, 1000, 8, 64, True, True, -8.0),
     "s1": (2, 1, 8, 64, True, False, -8.0),
@@ -855,6 +862,63 @@ def wkv_inputs(torch, shape, gen, dtype="float32"):
     s0 = torch.randn(B, H, D, D, generator=gen, device="cuda") \
         if with_s0 else None
     return r, k, v, w, u, s0
+
+
+def wkv_vs_plain(torch, gen, name, shape, dtype, scan, plain):
+    """The WKV kernel ``scan`` against ``plain`` on one ``WKV_SHAPES``
+    entry: o within ``allowed`` at ``dtype``, the final state at the
+    float32 gate. Returns the largest absolute error."""
+    args_ = wkv_inputs(torch, shape, gen, dtype)
+    t0 = time.monotonic()
+    want_o, want_s = plain(*args_)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    got_o, got_s = scan(*args_)
+    torch.cuda.synchronize()
+    check(got_o.dtype == args_[0].dtype
+          and got_s.dtype == torch.float32, "WKV output dtypes")
+    max_err = 0.0
+    # the final state is float32 in both: the float32 gate
+    for what, got, want, gate in (
+            ("o", got_o, want_o, dtype),
+            ("final state", got_s, want_s, "float32")):
+        err, outside = worst(got, want, allowed(want, gate))
+        max_err = max(max_err, err)
+        print(f"  {name:8s} {dtype:8s} {shape[:4]} {what:11s}: "
+              f"max_abs_err {err:.3e} (tol {TOL_TEXT[gate]}), "
+              f"{outside} outside; max|ref| "
+              f"{float(want.float().abs().max()):.1f}; plain "
+              f"{plain_s:.2f} s")
+        check(outside == 0 and math.isfinite(err),
+              f"WKV kernel disagrees with plain on {name}/{dtype}/{what}")
+    return max_err
+
+
+def wkv_timing(torch, gen, name, dtype, scan, plain, card_line):
+    """Device time a call of the WKV kernel ``scan`` and of ``plain`` on
+    ``WKV_SHAPES[name]``, beyond L2, beside its bound: one row of the
+    timing phase."""
+    shape = WKV_SHAPES[name]
+    B, S, H, D, with_s0 = shape[:5]
+    bms, by, flops, nbytes = wkv_bound_ms(shape, dtype)
+    n = max(2, math.ceil(2 * L2_BYTES / nbytes))
+    ins = [wkv_inputs(torch, shape, gen, dtype) for _ in range(n)]
+    ms = device_ms(torch, lambda i: scan(*ins[i]), n, calls=16, reps=3)
+    plain_ms = device_ms(torch, lambda i: plain(*ins[i]), n, calls=1,
+                         reps=2)
+    print(f"  rwkv6_scan {name}: B={B} S={S} H={H} D={D} {dtype} "
+          f"r/k/v/o, {'nonzero' if with_s0 else 'zero'} s0: kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, no "
+          f"library call; bound {bms * 1e3:.1f} us ({by}, "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+          f"{bms / ms:.3f} of it [{card_line}]")
+    del ins
+    release(torch)
+    return {"shape": name, "B": B, "S": S, "H": H, "D": D, "dtype": dtype,
+            "s0": with_s0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "flops": flops, "bytes": nbytes,
+            "achieved_GBps": nbytes / ms / 1e6, "bound_share": bms / ms}
 
 
 def wkv_bound_ms(shape, dtype="float32"):
@@ -1470,6 +1534,18 @@ def rel(a, b):
 def rms(a, b):
     """Root mean square of a - b, in float32."""
     return float((a.float() - b.float()).pow(2).mean().sqrt())
+
+
+def reference_block_build(args):
+    """``serve.build`` of ``args`` with the model's own fields at their
+    defaults (``config.reference_block``: rwkv6-7b's block without Finch's
+    time mix)."""
+    from repro_torch.config import get_config, reference_block
+    from repro_torch.models.builder import build_model
+    cfg = reference_block(get_config(args.arch, reduced=args.reduced))
+    model = build_model(cfg.replace(attn_impl="cuda", ssm_impl="cuda",
+                                    rwkv_impl="cuda"), args.device)
+    return model, model.init(model.generator(args.seed))
 
 
 def forward_check(torch, model, plain_model, params, batch, expect,
@@ -3480,30 +3556,8 @@ def main() -> int:
         max_err = 0.0
         for (name, shape), dtype in itertools.product(
                 WKV_SHAPES.items(), ("bfloat16", "float32")):
-            args_ = wkv_inputs(torch, shape, gen, dtype)
-            t0 = time.monotonic()
-            want_o, want_s = rwkv6_plain(*args_)
-            torch.cuda.synchronize()
-            plain_s = time.monotonic() - t0
-            got_o, got_s = rwkv6_scan(*args_)
-            torch.cuda.synchronize()
-            check(got_o.dtype == args_[0].dtype
-                  and got_s.dtype == torch.float32, "WKV output dtypes")
-            # the final state is float32 in both: the float32 gate
-            for what, got, want, gate in (
-                    ("o", got_o, want_o, dtype),
-                    ("final state", got_s, want_s, "float32")):
-                err, outside = worst(got, want, allowed(want, gate))
-                max_err = max(max_err, err)
-                print(f"  {name:8s} {dtype:8s} {shape[:4]} {what:11s}: "
-                      f"max_abs_err {err:.3e} (tol {TOL_TEXT[gate]}), "
-                      f"{outside} outside; max|ref| "
-                      f"{float(want.float().abs().max()):.1f}; plain "
-                      f"{plain_s:.2f} s")
-                check(outside == 0 and math.isfinite(err),
-                      f"WKV kernel disagrees with plain on "
-                      f"{name}/{dtype}/{what}")
-            del args_, want_o, want_s, got_o, got_s
+            max_err = max(max_err, wkv_vs_plain(
+                torch, gen, name, shape, dtype, rwkv6_scan, rwkv6_plain))
         for dtype in ("bfloat16", "float32"):
             max_err = max(max_err, tp_heads_vs_plain(
                 torch, gen, "wkv", dtype, rwkv6_scan, rwkv6_plain))
@@ -3818,7 +3872,7 @@ def main() -> int:
         with phase(ph):
             rargs = serve.parse_args(SERVE_ARGS + ["--arch", arch])
             t0 = time.monotonic()
-            rmodel, rparams = serve.build(rargs)
+            rmodel, rparams = reference_block_build(rargs)
             torch.cuda.synchronize()
             rcfg = rmodel.cfg
             n_bytes = sum(t.numel() * t.element_size()
@@ -4031,40 +4085,22 @@ def main() -> int:
         ssd_record["tp_rank_row"] = ssd_timing["tp_rank"] = tp_heads_timing(
             torch, gen, "ssd", ssd_scan, ssd_scan_plain, card_line)
 
-        # WKV: the float32 row (fused views, nonzero s0) and the model's
-        # own call (bf16 r, k, v and o, zero s0); the record carries the
+        # WKV: the float32 row (fused views, nonzero s0), the model's own
+        # call (bf16 r, k, v and o, zero s0) and the same call at the
+        # rwkv6-7b.forward-4x4096 cell's S = 4096; the record carries the
         # model's call, the main path's
-        wkv_timings = []
-        for name, dtype in (("forward", "float32"), ("model", "bfloat16")):
-            shape = WKV_SHAPES[name]
-            B, S, H, D, with_s0 = shape[:5]
-            bms, by, flops, nbytes = wkv_bound_ms(shape, dtype)
-            n = max(2, math.ceil(2 * L2_BYTES / nbytes))
-            ins = [wkv_inputs(torch, shape, gen, dtype) for _ in range(n)]
-            ms = device_ms(torch, lambda i: rwkv6_scan(*ins[i]), n,
-                           calls=16, reps=3)
-            plain = device_ms(torch, lambda i: rwkv6_plain(*ins[i]), n,
-                              calls=1, reps=2)
-            print(f"  rwkv6_scan {name}: B={B} S={S} H={H} D={D} {dtype} "
-                  f"r/k/v/o, {'nonzero' if with_s0 else 'zero'} s0: kernel "
-                  f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, no "
-                  f"library call; bound {bms * 1e3:.1f} us ({by}, "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-                  f"{bms / ms:.3f} of it [{card_line}]")
-            wkv_timings.append({
-                "shape": name, "B": B, "S": S, "H": H, "D": D,
-                "dtype": dtype, "s0": with_s0, "ms": ms, "plain_ms": plain,
-                "library_ms": None, "bound_ms": bms, "bound_by": by,
-                "flops": flops, "bytes": nbytes,
-                "achieved_GBps": nbytes / ms / 1e6, "bound_share": bms / ms})
-            del ins
-            release(torch)
+        wkv_timings = [
+            wkv_timing(torch, gen, name, dtype, rwkv6_scan, rwkv6_plain,
+                       card_line)
+            for name, dtype in (("forward", "float32"),
+                                ("model", "bfloat16"),
+                                ("cell", "bfloat16"))]
         glue_timings = glue_timing(torch, gen, card_line)
         for row in glue_timings:
             glue_records[row["name"]].update(
                 {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")})
-        fp32_t, model_t = wkv_timings
+        fp32_t, model_t, cell_t = wkv_timings
         wkv_tp = tp_heads_timing(torch, gen, "wkv", rwkv6_scan, rwkv6_plain,
                                  card_line)
         wkv_timings.append(wkv_tp)
@@ -4072,9 +4108,9 @@ def main() -> int:
         wkv_record.update(
             ms=model_t["ms"], plain_ms=model_t["plain_ms"],
             bound_ms=model_t["bound_ms"], bound_by=model_t["bound_by"],
-            library_ms=None, float32_row={
-                k: fp32_t[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by")})
+            library_ms=None, **{f"{row}_row": {
+                k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                for row, t in (("float32", fp32_t), ("cell", cell_t))})
         print(json.dumps({"kernel_timings": timings,
                           "flash_timings": flash_timings,
                           "ssd_timing": ssd_timing,

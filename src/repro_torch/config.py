@@ -32,7 +32,14 @@ owners and back). Outside a mesh every value runs the row-local path.
 ``ShapeConfig`` and ``SHAPES`` are the reference's dry-run cells (train,
 prefill and decode input shapes), ``shape_applicable`` says which
 (arch, shape) cells run, and ``param_count`` / ``active_param_count``
-are the reference's closed-form parameter counts.
+are the reference's closed-form parameter counts (the ssm family's
+counts only r/k/v/g/o and the channel mix's two ``d_ff`` matrices).
+
+The RWKV-6 fields ``rwkv_mix_rank`` and ``rwkv_decay_rank`` are the
+port's own (``PORT_ONLY_FIELDS``): their defaults are the reference's
+block, and ``rwkv6-7b``'s ``full()`` sets them to Finch's
+(``repro_torch.models.rwkv``). ``reference_block(cfg)`` resets them,
+giving the model the reference builds.
 """
 from __future__ import annotations
 
@@ -89,6 +96,12 @@ class ModelConfig:
 
     # --- RWKV6 ---------------------------------------------------------------
     rwkv_head_dim: int = 64
+    # Finch's time mix, the port's own (the defaults are the reference's
+    # block): the rank of the data-dependent token shift's LoRA (0: static
+    # sigmoid lerps and one RMS ``ln_x``; above 0 also Finch's GroupNorm
+    # per head), and the rank of the decay's LoRA
+    rwkv_mix_rank: int = 0
+    rwkv_decay_rank: int = 64
 
     # --- encoder-decoder ----------------------------------------------------
     enc_layers: int = 0
@@ -141,6 +154,20 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         return _param_count(self, active_only=True)
+
+
+# The port's own fields, which the reference's configuration lacks: the
+# RWKV-6 Finch time mix (``rwkv6-7b``'s ``full()``)
+PORT_ONLY_FIELDS = ("rwkv_mix_rank", "rwkv_decay_rank")
+
+
+def reference_block(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with the port's own fields at their defaults: the model the
+    reference builds from the same name (for rwkv6-7b the reference's
+    block, with static lerps, a rank-64 decay LoRA and an RMS ``ln_x``,
+    at ``cfg``'s widths)."""
+    fields = ModelConfig.__dataclass_fields__
+    return cfg.replace(**{f: fields[f].default for f in PORT_ONLY_FIELDS})
 
 
 def _moe_ffn_params(cfg: ModelConfig, active_only: bool) -> int:

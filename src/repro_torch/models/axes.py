@@ -52,9 +52,12 @@ _RULES: Dict[str, Dict[str, Axes]] = {
               "dt_bias": ("ssm_heads",),
               "norm": ("ssm_inner",),
               "out_proj": ("ssm_inner", "embed")},
-    "tmix": {**{f"mix_{c}": ("embed",) for c in "rkvgw"},
+    "tmix": {**{f"mix_{c}": ("embed",) for c in "rkvgwx"},
+             "mix_lora_a": ("embed", None),
+             **{f"mix_lora_b_{c}": (None, "embed") for c in "wkvrg"},
              "w0": ("embed",),
              "ln_x": ("embed",),
+             "ln_x_bias": ("embed",),
              "u": ("heads", "head_dim"),
              "w_lora_a": ("embed", None),
              "w_lora_b": (None, "embed"),

@@ -9,7 +9,8 @@ profiler's clock with the device's operations. With no profiler running
 it costs one check of the profiler's state and returns a shared null
 context, so the hot path carries its spans at no cost. ``SPANS`` names
 the spans the port's hot path opens (the train step's phases, the
-attention core, the Mamba-2 mixer's parts).
+attention core, the Mamba-2 mixer's parts, the RWKV-6 time mix's parts
+and its channel mix).
 
 ``start_trace(dir, max_steps)`` starts a ``torch.profiler.profile`` (CPU
 activity, and CUDA activity where a card is present); ``stop_trace()``
@@ -40,8 +41,14 @@ ATTN_CORE = "attn.core"                 # models/attention.py attend
 SSM_MIXER = "ssm.mixer"                 # models/ssm.py apply_mamba2
 SSM_PROJ = "ssm.proj"                   # its in_proj and out_proj matmuls
 SSM_SCAN = "ssm.scan"                   # its SSD scan
+RWKV_TMIX = "rwkv.tmix"                 # models/rwkv.py apply_tmix
+RWKV_SHIFT = "rwkv.shift"               # its token shift and lerps
+RWKV_PROJ = "rwkv.proj"                 # its r/k/v/g matmuls, then wo
+RWKV_SCAN = "rwkv.scan"                 # its WKV recurrence
+RWKV_CMIX = "rwkv.cmix"                 # models/rwkv.py apply_cmix
 SPANS = (TRAIN_FORWARD, TRAIN_BACKWARD, TRAIN_OPTIMIZER, ATTN_CORE,
-         SSM_MIXER, SSM_PROJ, SSM_SCAN)
+         SSM_MIXER, SSM_PROJ, SSM_SCAN, RWKV_TMIX, RWKV_SHIFT, RWKV_PROJ,
+         RWKV_SCAN, RWKV_CMIX)
 
 _OFF = contextlib.nullcontext()
 _profiling = torch._C._autograd._profiler_enabled

@@ -20,7 +20,8 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models.builder import build_model as jax_build  # noqa: E402
 from repro.models.builder import cache_batch_axes as jax_axes  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.config import ModelConfig, get_config, list_archs  # noqa: E402
+from repro_torch.config import (PORT_ONLY_FIELDS, ModelConfig,  # noqa: E402
+                                get_config, list_archs, reference_block)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import ffn as F  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -132,11 +133,15 @@ def test_update_cache_drops_rows_past_the_cache():
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_the_reference(arch, reduced):
-    """Every field the port keeps means the same as in repro.config."""
-    cfg, ref = get_config(arch, reduced), jax_config(arch, reduced)
+    """Every field the port keeps means the same as in repro.config; the
+    port's own fields (rwkv6-7b's Finch time mix) are at their defaults,
+    the reference's block, except in full-width rwkv6-7b."""
+    port = get_config(arch, reduced)
+    cfg, ref = reference_block(port), jax_config(arch, reduced)
     for f in dataclasses.fields(ModelConfig):
-        if f.name not in IMPLS:
+        if f.name not in IMPLS + PORT_ONLY_FIELDS:
             assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+    assert (port == cfg) is (reduced or arch != "rwkv6-7b")
     assert cfg.kv_groups == ref.kv_groups
     assert cfg.ssm_d_inner == ref.ssm_d_inner
     assert [cfg.is_global_layer(i) for i in range(cfg.num_layers)] == \
@@ -161,11 +166,13 @@ def test_full_width_parameter_layout():
 def test_full_width_parameter_layout_of_every_family(arch):
     """The other transformer configs' full-width trees, moonshot's
     ``dense_layers`` and ``moe`` leaves included, have the reference's
-    keys and shapes (both built without allocating)."""
+    keys and shapes (both built without allocating); rwkv6-7b's with
+    the reference's block (``reference_block``: no Finch time mix)."""
     ref = jax_build(jax_config(arch)).abstract_params()
     want = {p: tuple(b.value.shape) for p, b in tree_leaves(
         jax.tree.map(lambda b: b, ref, is_leaf=JL.is_boxed))}
-    got = T.init_params(get_config(arch), None, torch.device("meta"))
+    got = T.init_params(reference_block(get_config(arch)), None,
+                        torch.device("meta"))
     assert {p: tuple(x.shape) for p, x in tree_leaves(got)} == want
 
 

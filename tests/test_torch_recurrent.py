@@ -47,7 +47,7 @@ from repro.serving import Request as JaxRequest  # noqa: E402
 from repro.serving import ServeEngine as JaxEngine  # noqa: E402
 from repro.train.step import make_prefill_step as jax_prefill  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.config import get_config  # noqa: E402
+from repro_torch.config import get_config, reference_block  # noqa: E402
 from repro_torch.models.builder import build_model, cache_batch_axes  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.train.step import make_prefill_step  # noqa: E402
@@ -164,12 +164,14 @@ def test_rwkv_tmix_bf16_matches_reference(port_impl, ref_impl):
 def test_full_width_parameter_and_cache_layout(arch):
     """At the published widths the port's parameter tree has the
     reference's keys and shapes, and its decode cache the reference's
-    keys, shapes and dtypes (all built without allocating)."""
+    keys, shapes and dtypes (all built without allocating); rwkv6-7b
+    with the reference's block (``reference_block``: no Finch leaves)."""
     from repro_torch.models import transformer as T
     jm = jax_build(jax_config(arch))
     want = {p: tuple(b.value.shape) for p, b in tree_leaves(
         jax.tree.map(lambda b: b, jm.abstract_params(), is_leaf=JL.is_boxed))}
-    got = T.init_params(get_config(arch), None, torch.device("meta"))
+    got = T.init_params(reference_block(get_config(arch)), None,
+                        torch.device("meta"))
     assert {p: tuple(x.shape) for p, x in tree_leaves(got)} == want
     jcache = jax.eval_shape(lambda: jm.init_cache(4, 512))
     cache = build_model(get_config(arch), "cpu").init_cache(

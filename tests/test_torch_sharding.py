@@ -25,7 +25,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import sharding as S  # noqa: E402
-from repro_torch.config import MeshConfig, get_config, list_archs  # noqa: E402
+from repro_torch.config import (MeshConfig, get_config, list_archs,  # noqa: E402
+                                reference_block)
 from repro_torch.launch import mesh as LM  # noqa: E402
 from repro_torch.models.axes import param_axes, param_shapes  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -69,7 +70,9 @@ def _to_port(entries, cfg):
 @pytest.mark.parametrize("reduced", [True, False])
 @pytest.mark.parametrize("arch", list_archs())
 def test_param_axes_match_the_reference(arch, reduced):
-    cfg = get_config(arch, reduced=reduced)
+    """The reference's axes of every leaf (rwkv6-7b with the reference's
+    block: ``reference_block``)."""
+    cfg = reference_block(get_config(arch, reduced=reduced))
     _, want = _ref_boxed(arch, reduced)
     got = dict(tree_leaves(param_axes(cfg)))
     assert got.keys() == want.keys()
